@@ -7,23 +7,31 @@ Run from the repository root on a machine with a CUDA card:
 Phases (each prints one line; any failure raises and exits non-zero):
 
 1. device — require CUDA; print the card and its power limit;
-2. build — compile the fused PSM kernel (K1) from ``laser_slam_tpu_torch/
-   csrc`` with nvcc for sm_90a;
-3. kernel parity at full size — K1 against the plain PyTorch matcher on
-   the card: 2671 consecutive LMS211 pairs of the synthetic intel-lab-
-   shaped log, and 512 pairs at 361 and 541 beams; batch timings;
-4. main path — ``laser_slam_tpu_torch.cli odometry`` on the 2672-scan
+2. build — compile the fused PSM kernel (K1, two entries) from
+   ``laser_slam_tpu_torch/csrc`` with nvcc for sm_90a;
+3. kernel parity at full size — K1's batch entry against the plain
+   PyTorch matcher on the card, and its error-index epilogue against the
+   plain ``error_index``: 2671 consecutive LMS211 pairs of the synthetic
+   intel-lab-shaped log, and 512 pairs at 361 and 541 beams; batch
+   timings;
+4. main paths — ``laser_slam_tpu_torch.cli odometry`` on the 2672-scan
    synthetic CARMEN log on ``cuda``: read → preprocess → keyframe
-   odometry (K1 two pairs per step, ±π correlative re-match of flagged
-   steps) → ATE/RPE → occupancy map → PNG; then K1 against the plain
-   matcher on the keyframe steps' own two-pair inputs (with their
-   nonzero priors), the step timing, and each layer of the path again,
+   odometry (K1's chain entry: pass 1 in one launch; then the ±π
+   correlative re-match of flagged steps) → ATE/RPE → occupancy map →
+   PNG; and ``cli odometry --pairwise`` (K1's batch entry, one launch of
+   2671 pairs). Then the keyframe odometry again by the step-loop route
+   (``chain="steps"``, the chain entry's plain version on the card), held
+   against the chain's poses and flags over the whole log; K1's batch
+   entry and epilogue against the plain versions on the steps' own
+   two-pair inputs (with their nonzero priors); timings of the chain and
+   the step; a ``torch.profiler`` trace of the keyframe odometry (kernel
+   counts, device busy and idle share); each layer of the path again,
    alone, for its share of the time;
 5. the bundled intel-lab log, when present at the repo's reference-data
    location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
 
-The last two lines of stdout are the kernels' JSON record and the
-device JSON line.
+The last three lines of stdout are the kernels' JSON record, the card's
+name and power limit, and the device JSON line.
 """
 
 from __future__ import annotations
@@ -65,9 +73,27 @@ POSE_ATOL, ERR_RTOL = 1e-4, 1e-4
 # bounds of tests/test_pallas_psm.py::test_pallas_compiled_parity_on_intel,
 # because float transcendentals differ between the devices in the last bit.
 P50_T, P99_T, P50_R_DEG, P99_R_DEG, MAX_KERNEL_ONLY_FAILS = 5e-3, 0.15, 0.1, 2.0, 5
-# Every this-many keyframe steps of the main path, K1 is held to the plain
-# matcher on that step's own inputs.
+# Every this-many keyframe steps of the step-loop route, K1 is held to the
+# plain matcher on that step's own inputs.
 STEP_SAMPLE = 16
+# K1's chain entry against the step loop on the card, whole log: flags
+# identical; poses within 1e-3 m / rad. Both routes run the kernel's one
+# arithmetic for the matches and error indices; only the pose composition
+# differs (ATen's kernels against the chain kernel's registers), float32
+# round-off carried along 2671 steps.
+CHAIN_ATOL = 1e-3
+# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
+# tensor cores, and HBM3 bandwidth. The bounds below are stated against them.
+PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# Floating-point operations K1 needs per beam, transcendentals counted as one
+# each: a projection (transform 12, atan2 and lift 2, pair quantities 8,
+# candidate bins 6, ~2 covered bins x 6), one shift of the orientation search
+# (subtract, abs, two adds), the translation sums, the error-index sums.
+OPS_PROJECT, OPS_SHIFT, OPS_TRANSLATE, OPS_INDEX = 40, 4, 22, 8
+# Bytes per match beside the scans: prior in, pose, residual, fail flag and
+# iteration count out; the error index's two floats and a count; a chain
+# step's pose, three flags and two iteration counts.
+MATCH_IO_BYTES, INDEX_OUT_BYTES, CHAIN_STEP_OUT_BYTES = 12 + 12 + 4 + 1 + 4, 12, 12 + 3 + 8
 
 
 def phase(name: str, msg: str) -> None:
@@ -144,6 +170,63 @@ def cross_device_parity(fused, plain_cpu, label):
     return stats
 
 
+def index_parity(got, want, label):
+    """Holds the epilogue's ``(err_x, err_y, n)`` to the plain
+    ``error_index``: ``n`` equal, the errors within ``ERR_RTOL``. Returns
+    the largest relative error."""
+    np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy(), label)
+    rel = 0.0
+    for g, w in zip(got[:2], want[:2]):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(g, w, rtol=ERR_RTOL, err_msg=label)
+        rel = max(rel, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))))
+    phase("parity", f"{label}: error index n equal, max rel err {rel:.3g}")
+    return rel
+
+
+def bound_ms(model, iters_total, matches, n_bytes, with_index=True):
+    """Least milliseconds the card could take for ``matches`` PSM matches
+    that ran ``iters_total`` solver iterations in all and moved
+    ``n_bytes``: the larger of operations over the float32 peak and bytes
+    over the memory rate. Returns ``(ms, "operations" | "bytes")``."""
+    n, shifts = model.n_beams, 2 * model.window + 1
+    ops = iters_total * n * (2 * OPS_PROJECT + shifts * OPS_SHIFT + OPS_TRANSLATE)
+    if with_index:
+        ops += matches * n * (OPS_PROJECT + OPS_INDEX)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def n_bytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def trace(fn):
+    """Runs ``fn()`` under ``torch.profiler`` and returns ``(wall seconds,
+    number of device operations, device-busy seconds as the union of their
+    intervals, {kernel: (count, seconds)})``, K1's two entries by name and
+    everything else as ``other``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.events()
+           if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start]
+    by_name, busy, edge = {}, 0.0, None
+    for e in sorted(ops, key=lambda e: e.time_range.start):
+        key = next((k for k in ("psm_chain_kernel", "psm_match_kernel") if k in e.name), "other")
+        count, seconds = by_name.get(key, (0, 0.0))
+        by_name[key] = (count + 1, seconds + (e.time_range.end - e.time_range.start) / 1e6)
+        start = e.time_range.start if edge is None else max(e.time_range.start, edge)
+        busy += max(0.0, e.time_range.end - start) / 1e6
+        edge = e.time_range.end if edge is None else max(edge, e.time_range.end)
+    return wall, len(ops), busy, by_name
+
+
 def cat_results(results, psm):
     return psm.MatchResult(*(torch.cat(x) for x in zip(*results)))
 
@@ -199,46 +282,51 @@ def main() -> None:
     lms211 = log.model
     scans = pp.preprocess(torch.as_tensor(log.ranges, device=dev), lms211)
     ref, cur = pairs(scans, S)
-    stats = [parity(K.match_psm_fused(lms211, ref, cur), psm.match_psm(lms211, ref, cur),
-                    f"{lms211.name} x{ref.ranges.shape[0]}, plain on cuda")]
+
+    def batch_parity(model, a, b, label):
+        """The batch entry with its epilogue (error reference: the match
+        reference) against the plain matcher and the plain error index."""
+        fused, index = K.match_psm_fused(model, a, b, error_ref=a)
+        st = parity(fused, psm.match_psm(model, a, b), label)
+        st["index_rel_err"] = index_parity(index, psm.error_index(model, a, b, fused.pose), label)
+        return st
+
+    stats = [batch_parity(lms211, ref, cur,
+                          f"{lms211.name} x{ref.ranges.shape[0]}, plain on cuda")]
     rng = np.random.default_rng(7)
     for model in (S.LMS511, S.LMS151):
         r = synth.ray_cast(synth.floor_plan(), gt[:513], model.bearings(torch.float64).numpy())
         r = np.where(r <= synth.MAX_RANGE, r + rng.normal(0.0, synth.NOISE, r.shape), r)
         a, b = pairs(pp.preprocess(torch.as_tensor(r.astype(np.float32), device=dev), model), S)
-        stats.append(parity(K.match_psm_fused(model, a, b), psm.match_psm(model, a, b),
-                            f"{model.name} x512, plain on cuda"))
+        stats.append(batch_parity(model, a, b, f"{model.name} x512, plain on cuda"))
 
-    batch_ms = cuda_ms(lambda: K.match_psm_fused(lms211, ref, cur), 20)
-    batch_plain_ms = cuda_ms(lambda: psm.match_psm(lms211, ref, cur), 3)
     n_pairs = ref.ranges.shape[0]
-    phase("timing", f"K1 {n_pairs} pairs: {batch_ms:.3f} ms ({n_pairs / batch_ms * 1e3:.1f} "
-                    f"matches/s), plain {batch_plain_ms:.3f} ms "
-                    f"({n_pairs / batch_plain_ms * 1e3:.1f} matches/s); {smi}")
+    batch_ms = cuda_ms(lambda: K.match_psm_fused(lms211, ref, cur), 20)
+    batch_index_ms = cuda_ms(lambda: K.match_psm_fused(lms211, ref, cur, error_ref=ref), 20)
+    batch_plain_ms = cuda_ms(lambda: psm.match_psm(lms211, ref, cur), 3)
+    batch_iters = int(K.match_psm_fused.last_iters.sum())
+    # Each scan tensor once (the pair mask is as large as cur.bad).
+    batch_bound, batch_bound_by = bound_ms(
+        lms211, batch_iters, n_pairs,
+        n_bytes(ref.ranges, ref.bad, cur.ranges, cur.bad) + n_pairs * MATCH_IO_BYTES,
+        with_index=False)
+    phase("timing", f"K1 batch entry, {n_pairs} pairs ({batch_iters} iterations in all): "
+                    f"{batch_ms:.4f} ms ({n_pairs / batch_ms * 1e3:.1f} matches/s), with the "
+                    f"error-index epilogue {batch_index_ms:.4f} ms, plain {batch_plain_ms:.3f} ms "
+                    f"({n_pairs / batch_plain_ms * 1e3:.1f} matches/s), bound "
+                    f"{batch_bound:.5f} ms by {batch_bound_by}; {smi}")
 
-    # -- 4. main path -----------------------------------------------------
-    # The keyframe step's K1 inputs are kept (references only: each step
-    # builds them anew) so that K1 can be held to the plain matcher on them
-    # after the run; the call itself goes to the wrapper unchanged.
-    fused, step_inputs = K.match_psm_fused, []
-
-    def recording(model, ref, cur, init_pose=None):
-        step_inputs.append((ref, cur, init_pose))
-        return fused(model, ref, cur, init_pose)
-
+    # -- 4. main paths ----------------------------------------------------
     with tmp:
         traj, png = os.path.join(tmp.name, "traj.txt"), os.path.join(tmp.name, "map.png")
-        odometry.match_psm_fused = recording
-        try:
-            K.match_psm_fused.launches = 0
-            t0 = time.perf_counter()
-            run = cli.main(["odometry", log_path, "--device", "cuda", "--out", traj,
-                            "--map", png])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = K.match_psm_fused.launches
-        finally:
-            odometry.match_psm_fused = fused
+        K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+        t0 = time.perf_counter()
+        run = cli.main(["odometry", log_path, "--device", "cuda", "--out", traj, "--map", png])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chain_launches = K.odometry_chain_fused.launches
+        step_launches = K.match_psm_fused.launches
+        chain_iters = K.odometry_chain_fused.last_iters.cpu().numpy()
         t = run.log.n_scans
         res = run.result
         tensors = [*run.scans, *(x for x in res if x is not None), *run.ate, *run.rpe,
@@ -253,48 +341,141 @@ def main() -> None:
         with open(png, "rb") as f:
             if f.read(8) != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError("map PNG not written")
-        if launches < t - 1:
-            raise AssertionError(f"K1 launched {launches} times for {t - 1} steps")
+        if chain_launches != 1 or step_launches != 0:
+            raise AssertionError(f"keyframe odometry launched K1's chain entry {chain_launches} "
+                                 f"times (expected once) and its batch entry {step_launches} times")
+        if chain_iters.shape != (t - 1, 2) or chain_iters.min() < 1:
+            raise AssertionError("the chain entry did not run every step")
         n_rematch = int(res.rematched.sum())
         if n_rematch <= 0:
             raise AssertionError("pass 2 (correlative re-match) never ran")
         ate = float(run.ate.rmse)
         bound = ATE_FACTOR * JAX_SYNTHETIC_ATE + ATE_SLACK
-        phase("main", f"{t} scans: odometry {run.seconds:.2f}s ({t / run.seconds:.1f} scans/s), "
-                      f"cli total {wall:.2f}s; K1 launches {launches}; pass-2 re-matches "
-                      f"{n_rematch}; switched {int(res.switched.sum())} weak {int(res.weak.sum())} "
+        phase("main", f"{t} scans: odometry {run.seconds:.3f}s ({t / run.seconds:.1f} scans/s), "
+                      f"cli total {wall:.2f}s; K1 chain launches {chain_launches}, batch-entry "
+                      f"launches {step_launches}; pass-2 re-matches {n_rematch}; switched "
+                      f"{int(res.switched.sum())} weak {int(res.weak.sum())} "
                       f"discarded {int(res.discarded.sum())} fracture {int(res.fracture.sum())}; "
                       f"ATE {ate:.4f} m (JAX {JAX_SYNTHETIC_ATE:.4f}, bound {bound:.4f}); "
                       f"RPE {float(run.rpe[0].mean()):.4f} m; map {tuple(run.grid.log_odds.shape)}")
         if not ate <= bound:
             raise AssertionError(f"ATE {ate} above {bound}")
 
-        # K1 against the plain matcher on the keyframe steps' own inputs:
-        # two pairs per call, the keyframe pair from its nonzero prior.
+        # The pairwise path: K1's batch entry, one launch over the whole log.
+        K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+        pw = cli.main(["odometry", log_path, "--device", "cuda", "--pairwise"])
+        torch.cuda.synchronize()
+        batch_launches = K.match_psm_fused.launches
+        pw_poses = pw.result.poses.cpu().numpy()
+        if batch_launches != 1 or K.odometry_chain_fused.launches != 0:
+            raise AssertionError(f"pairwise odometry launched K1's batch entry {batch_launches} times")
+        if pw_poses.shape != (t, 3) or not np.isfinite(pw_poses).all():
+            raise AssertionError(f"bad pairwise trajectory: shape {pw_poses.shape}")
+        phase("main", f"pairwise: {t} scans in {pw.seconds:.3f}s, K1 batch-entry launches "
+                      f"{batch_launches}, ATE {float(pw.ate.rmse):.4f} m, "
+                      f"failed pairs {int(pw.result.discarded.sum())}")
+
+        # The step-loop route on the card, the chain entry's plain version:
+        # its K1 inputs are kept (references only: each step builds them
+        # anew); the call itself goes to the wrapper unchanged.
+        fused, step_inputs = K.match_psm_fused, []
+
+        def recording(model, ref, cur, init_pose=None, error_ref=None):
+            step_inputs.append((ref, cur, init_pose, error_ref))
+            return fused(model, ref, cur, init_pose, error_ref)
+
+        odometry.match_psm_fused = recording
+        try:
+            steps_res, steps_s = host_s(lambda: odometry.odometry_keyframe(
+                lms211, run.scans, timestamps=log.timestamps, chain="steps"))
+        finally:
+            odometry.match_psm_fused = fused
         if len(step_inputs) != t - 1:
             raise AssertionError(f"{len(step_inputs)} keyframe steps recorded for {t - 1}")
+        for name_ in ("switched", "discarded", "weak", "fracture", "rematched"):
+            if not torch.equal(getattr(res, name_), getattr(steps_res, name_)):
+                raise AssertionError(f"chain entry and step loop differ in {name_}")
+        chain_err = float((res.poses - steps_res.poses).abs().max())
+        phase("parity", f"chain entry vs step loop, {t} scans: five flag arrays identical, "
+                        f"max |dpose| {chain_err:.3g} (step loop {steps_s:.2f}s)")
+        if not chain_err <= CHAIN_ATOL:
+            raise AssertionError(f"chain entry and step loop differ by {chain_err}")
+
+        # K1's batch entry and epilogue against the plain versions on the
+        # keyframe steps' own inputs: two pairs per call, the keyframe pair
+        # from its nonzero prior, the error index against the previous scan.
         sample = [c for c in step_inputs[STEP_SAMPLE - 1::STEP_SAMPLE]
                   if bool(c[2][0].abs().sum() > 0)]
         if len(sample) < (t - 1) // STEP_SAMPLE // 2:
             raise AssertionError(f"only {len(sample)} sampled steps have a nonzero prior")
+        got = [K.match_psm_fused(lms211, *c) for c in sample]
+        label = f"{lms211.name} {len(sample)} keyframe steps x2 pairs, nonzero prior, plain on cuda"
+        k_steps = cat_results([g[0] for g in got], psm)
         stats.append(parity(
-            cat_results([K.match_psm_fused(lms211, *c) for c in sample], psm),
-            cat_results([psm.match_psm(lms211, *c) for c in sample], psm),
-            f"{lms211.name} {len(sample)} keyframe steps x2 pairs, nonzero prior, plain on cuda"))
+            k_steps, cat_results([psm.match_psm(lms211, *c[:3]) for c in sample], psm), label))
+        stats[-1]["index_rel_err"] = index_parity(
+            [torch.cat(x) for x in zip(*(g[1] for g in got))],
+            [torch.cat(x) for x in zip(*(psm.error_index(lms211, c[3], c[1], g[0].pose)
+                                         for c, g in zip(sample, got)))], label)
         step = sample[len(sample) // 2]
         step_ms = cuda_ms(lambda: K.match_psm_fused(lms211, *step), 200)
-        step_plain_ms = cuda_ms(lambda: psm.match_psm(lms211, *step), 20)
-        phase("timing", f"keyframe step (2 pairs): K1 {step_ms:.4f} ms, "
-                        f"plain {step_plain_ms:.3f} ms; {smi}")
+        step_plain_ms = cuda_ms(lambda: (
+            psm.error_index(lms211, step[3], step[1], psm.match_psm(lms211, *step[:3]).pose)), 20)
+        step_iters = int(K.match_psm_fused.last_iters.sum())
+        step_bound, step_bound_by = bound_ms(
+            lms211, step_iters, 2,
+            n_bytes(step[0].ranges, step[0].bad, step[1].ranges, step[1].bad, step[3].ranges,
+                    step[3].bad) + 2 * (MATCH_IO_BYTES + INDEX_OUT_BYTES))
+        phase("timing", f"keyframe step (2 pairs, {step_iters} iterations, with the error "
+                        f"index): K1 batch entry {step_ms:.4f} ms a call (wrapper's mask and "
+                        f"output tensors included), plain {step_plain_ms:.3f} ms, "
+                        f"bound {step_bound:.6f} ms by {step_bound_by}; {smi}")
+
+        # The chain entry alone, the whole log in one launch.
+        def chain():
+            return K.odometry_chain_fused(lms211, run.scans, odometry.KEYFRAME_ERR_THRESH,
+                                          2.0 * odometry.KEYFRAME_ERR_THRESH)
+
+        chain_ms = cuda_ms(chain, 5)
+        chain_plain_ms = cuda_ms(lambda: odometry._chain_steps(lms211, run.scans), 1)
+        chain_bound, chain_bound_by = bound_ms(
+            lms211, int(chain_iters.sum()), 2 * (t - 1),
+            n_bytes(run.scans.ranges, run.scans.bad, run.scans.bad)
+            + (t - 1) * CHAIN_STEP_OUT_BYTES)
+        phase("timing", f"K1 chain entry, {t - 1} steps ({int(chain_iters.sum())} iterations in "
+                        f"all, mean {chain_iters.mean():.2f} a match): {chain_ms:.3f} ms "
+                        f"({chain_ms / (t - 1) * 1e3:.2f} us a step), step loop "
+                        f"{chain_plain_ms:.1f} ms, bound {chain_bound:.5f} ms by "
+                        f"{chain_bound_by}; {smi}")
+        walls = [host_s(lambda: odometry.odometry_keyframe(
+            lms211, run.scans, timestamps=log.timestamps))[1] for _ in range(3)]
+        phase("timing", f"odometry_keyframe wall, 3 more runs: "
+                        f"{', '.join(f'{x:.4f}' for x in walls)} s")
+
+        # -- the device's view: profiler traces of the keyframe odometry and,
+        # for K1's device time at a keyframe step, of 300 steps of the step loop
+        traced_wall, n_ops, busy, by_name = trace(lambda: odometry.odometry_keyframe(
+            lms211, run.scans, timestamps=log.timestamps))
+        first = S.Scan(*(x[:301] for x in run.scans))
+        _, step_ops, _, step_by_name = trace(lambda: odometry._chain_steps(lms211, first))
+        step_n, step_dev_s = step_by_name.get("psm_match_kernel", (0, 0.0))
+        if step_n != 300:
+            raise AssertionError(f"the step loop launched K1 {step_n} times in 300 steps")
+        step_device_ms = step_dev_s / step_n * 1e3
+        phase("trace", json.dumps({
+            "traced_wall_s": traced_wall, "untraced_wall_s": min(walls),
+            "device_ops": n_ops, "device_busy_s": busy,
+            "idle_share_of_traced_wall": 1.0 - busy / traced_wall,
+            "by_kernel": {k: {"count": v[0], "seconds": v[1]} for k, v in by_name.items()},
+            "step_loop_300_steps": {"device_ops_per_step": step_ops / 300,
+                                    "k1_device_ms_per_step": step_device_ms},
+            "card": smi}))
+        if by_name.get("psm_chain_kernel", (0, 0.0))[0] != 1 or "psm_match_kernel" in by_name:
+            raise AssertionError(f"pass 1 is not one chain kernel in the trace: {by_name}")
 
         # -- where the main path's time goes: each layer again, alone ------
         _, t_read = host_s(lambda: read_carmen(log_path))
         _, t_pre = host_s(lambda: pp.preprocess(torch.as_tensor(log.ranges, device=dev), lms211))
-        # The keyframe step's error indices: one call on two pairs, both
-        # against the previous scan (row 1 of the step's reference pair).
-        last2 = S.Scan(*(x[[1, 1]] for x in step[0]))
-        pose2 = K.match_psm_fused(lms211, *step).pose
-        ei_ms = cuda_ms(lambda: psm.error_index(lms211, last2, step[1], pose2), 200)
         # Pass 2: the ±π correlative re-match of the flagged steps.
         steps = torch.as_tensor(np.nonzero(res.rematched.cpu().numpy())[0], device=dev)
         _, t_corr = host_s(lambda: correlative.match_correlative(
@@ -304,11 +485,11 @@ def main() -> None:
         _, t_metrics = host_s(lambda: (metrics.ate(res.poses, gt_t), metrics.rpe(res.poses, gt_t)))
         _, t_map = host_s(lambda: occ.integrate_scans(
             occ.empty_grid(run.grid.spec, device=dev), lms211, run.scans, res.poses))
-        k1_s, ei_s = launches * step_ms / 1e3, (t - 1) * ei_ms / 1e3
         phase("layers", json.dumps({
             "read_s": t_read, "preprocess_s": t_pre, "odometry_s": run.seconds,
-            "k1_s": k1_s, "error_index_s": ei_s,
-            "correlative_rematch_s": t_corr, "pass1_other_s": run.seconds - k1_s - ei_s - t_corr,
+            "pass1_chain_s": chain_ms / 1e3, "correlative_rematch_s": t_corr,
+            "odometry_other_s": run.seconds - chain_ms / 1e3 - t_corr,
+            "steps_route_odometry_s": steps_s, "steps_route_pass1_s": chain_plain_ms / 1e3,
             "ate_rpe_s": t_metrics, "map_s": t_map, "card": smi}))
 
     # Small input against the plain version on the CPU: the first 300
@@ -332,19 +513,33 @@ def main() -> None:
     else:
         phase("intel-lab", f"{INTEL_LOG} not present; skipped")
 
-    record = {"kernels": [{
-        "name": "psm_match (K1, fused PSM matcher)",
-        "route": "cuda",
-        "source": "laser_slam_tpu_torch/csrc/psm_kernel.cu",
-        "replaces": "laser_slam_tpu/ops/pallas/psm_kernel.py:341",
-        "launches": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in stats),
-        "ms": step_ms,
-        "plain_ms": step_plain_ms,
-        "batch_pairs": n_pairs,
-        "batch_ms": batch_ms,
-        "batch_plain_ms": batch_plain_ms,
-    }]}
+    source = "laser_slam_tpu_torch/csrc/psm_kernel.cu"
+    replaces = "laser_slam_tpu/ops/pallas/psm_kernel.py:341"
+    record = {"kernels": [
+        {
+            "name": "psm_chain_kernel (K1, keyframe chain entry: pass 1 of a whole log)",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": chain_launches,
+            "max_abs_err": chain_err,
+            "ms": chain_ms, "plain_ms": chain_plain_ms,
+            "bound_ms": chain_bound, "bound_by": chain_bound_by,
+            "library_ms": None,
+            "steps": t - 1, "us_per_step": chain_ms / (t - 1) * 1e3,
+        },
+        {
+            "name": "psm_match_kernel (K1, batch entry: one block per pair)",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": batch_launches,
+            "max_abs_err": max(s["max_abs_err"] for s in stats),
+            "ms": batch_ms, "plain_ms": batch_plain_ms,
+            "bound_ms": batch_bound, "bound_by": batch_bound_by,
+            "library_ms": None,
+            "batch_pairs": n_pairs, "with_index_ms": batch_index_ms,
+            "step_pairs": 2, "step_ms": step_ms, "step_device_ms": step_device_ms,
+            "step_plain_ms": step_plain_ms, "step_bound_ms": step_bound,
+            "index_max_rel_err": max(s["index_rel_err"] for s in stats),
+        },
+    ]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
   the trajectory (``--out``) and an occupancy-map PNG (``--map``).
 - ``draw``: render an occupancy-map PNG from a log and a trajectory.
 
-``--device`` picks where the tensors live (``cuda`` by default when a
-card is present, else ``cpu``).
+``--device`` picks where the tensors live: ``cuda`` by default, and the
+command fails when there is no CUDA device; ``--device cpu`` asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -40,9 +41,11 @@ def _load(path, max_scans):
 
 
 def _device(name: str | None) -> torch.device:
-    if name is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(name)
+    dev = torch.device("cuda" if name is None else name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass --device cpu to run on the CPU")
+    return dev
 
 
 def _sync(dev: torch.device) -> None:
@@ -121,7 +124,8 @@ def main(argv=None):
         sp.add_argument("log")
         sp.add_argument("--scans", type=int, default=None)
         sp.add_argument("--device", default=None,
-                        help="torch device (default: cuda if available, else cpu)")
+                        help="torch device (default: cuda; fails without a CUDA "
+                             "device unless cpu is asked for)")
 
     sp = sub.add_parser("odometry", help="scan-matching odometry over a log")
     common(sp)

@@ -2,8 +2,9 @@
 
 - :func:`odometry_keyframe` — keyframe odometry in two passes: a
   sequential chain of PSM matches with keyframe switching that only
-  *flags* steps whose banded matchers failed, then a batched ±π
-  correlative re-match of the flagged steps and a re-chaining.
+  *flags* steps whose banded matchers failed (on a CUDA device the whole
+  chain is one kernel launch), then a batched ±π correlative re-match
+  of the flagged steps and a re-chaining.
 - :func:`odometry_pairwise` — all consecutive pairs matched in one
   batch, then a log-depth pose chain.
 """
@@ -18,7 +19,7 @@ import torch
 from ..core import se2
 from ..core.scan import LaserModel, Scan
 from .correlative import match_correlative
-from .cuda.psm_kernel import match_psm_fused
+from .cuda.psm_kernel import match_psm_fused, odometry_chain_fused
 from .psm import error_index
 
 Tensor = torch.Tensor
@@ -54,21 +55,31 @@ def _where_scan(cond: Tensor, a: Scan, b: Scan) -> Scan:
     return Scan(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
+def _match_and_score(model: LaserModel, ref: Scan, cur: Scan, init: Tensor, last: Scan):
+    """PSM match of ``cur`` against ``ref`` and its error index against
+    ``last``: one fused launch on a CUDA device. On the CPU the matcher
+    is called with its plain signature, so that a stand-in can take its
+    place in this module, and the error index is the plain one."""
+    if cur.ranges.device.type == "cuda":
+        return match_psm_fused(model, ref, cur, init, error_ref=last)
+    res = match_psm_fused(model, ref, cur, init)
+    return res, error_index(model, last, cur, res.pose)
+
+
 def _step(model: LaserModel, carry: _OdoCarry, cur: Scan):
     """One pass-1 odometry step with no host sync.
 
     The keyframe match ``(ref, cur, prior_rel)`` and the switch-branch
     match ``(last, cur, 0)`` run as one fused PSM launch of two pairs,
-    and both error indices as one batch; the branch is a select (both
-    branches are pure, so the result equals a conditional)."""
-    res = match_psm_fused(
+    both error indices (against ``last``) with them; the branch is a
+    select (both branches are pure, so the result equals a conditional)."""
+    cur2 = _stack2(cur, cur)
+    res, (ex, ey, _) = _match_and_score(
         model,
         _stack2(carry.ref, carry.last),
-        _stack2(cur, cur),
+        cur2,
         torch.stack([carry.prior_rel, torch.zeros_like(carry.prior_rel)]),
-    )
-    ex, ey, _ = error_index(
-        model, _stack2(carry.last, carry.last), _stack2(cur, cur), res.pose
+        _stack2(carry.last, carry.last),
     )
     err = torch.sqrt(ex + ey)
     need_switch = res.fail[0] | (err[0] > KEYFRAME_ERR_THRESH)
@@ -117,17 +128,40 @@ def _deep_rematch_chunk(
     return corr.pose, corr.fail, weak, frac
 
 
+def _chain_steps(model: LaserModel, scans: Scan):
+    """Pass 1 as a host loop of :func:`_step`: the plain version of
+    ``odometry_chain_fused``. Returns ``(poses [T-1, 3], switched,
+    discarded, deep_flag)``."""
+    dev, dtype = scans.ranges.device, scans.ranges.dtype
+    zero = torch.zeros(3, dtype=dtype, device=dev)
+    first = Scan(*(x[0] for x in scans))
+    carry = _OdoCarry(ref=first, last=first, ref_gpose=zero, last_gpose=zero,
+                      prior_rel=zero)
+    outs = []
+    for i in range(1, scans.ranges.shape[0]):
+        carry, out = _step(model, carry, Scan(*(x[i] for x in scans)))
+        outs.append(out)
+    if not outs:
+        none = torch.zeros(0, dtype=torch.bool, device=dev)
+        return torch.zeros(0, 3, dtype=dtype, device=dev), none, none, none
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def odometry_keyframe(
     model: LaserModel,
     scans: Scan,
     deep_chunk: int = 128,
     timestamps=None,
+    chain: str = "fused",
 ) -> OdometryResult:
     """Keyframe odometry over a preprocessed ``[T, N]`` scan log on the
     scans' device.
 
-    1. A loop of :func:`_step` (two fused PSM matches per step, no host
-       sync) that flags steps whose banded matchers failed.
+    1. The keyframe chain, which flags steps whose banded matchers
+       failed: on a CUDA device one launch of ``odometry_chain_fused``;
+       on the CPU, and on a CUDA device with ``chain="steps"``, its plain
+       version, a host loop of :func:`_step` (two PSM matches per step,
+       no host sync).
     2. A host loop over chunks of ``deep_chunk`` flagged steps (padded
        with step 0, whose rows are thrown away) re-matched by a ±π
        correlative search, then a re-chaining of the per-step relatives.
@@ -136,21 +170,16 @@ def odometry_keyframe(
     whose dt exceeds 8× the median is weak, and inside the re-match it
     corroborates a fracture.
     """
+    if chain not in ("fused", "steps"):
+        raise ValueError(f"odometry_keyframe: chain must be 'fused' or 'steps', got {chain!r}")
     dev, dtype = scans.ranges.device, scans.ranges.dtype
     t = scans.ranges.shape[0]
     zero = torch.zeros(3, dtype=dtype, device=dev)
-    first = Scan(*(x[0] for x in scans))
-    carry = _OdoCarry(ref=first, last=first, ref_gpose=zero, last_gpose=zero,
-                      prior_rel=zero)
-    outs = []
-    for i in range(1, t):
-        carry, out = _step(model, carry, Scan(*(x[i] for x in scans)))
-        outs.append(out)
-    if outs:
-        poses, switched, discarded, deep_flag = (torch.stack(o) for o in zip(*outs))
+    if dev.type == "cuda" and chain == "fused":
+        poses, switched, discarded, deep_flag = odometry_chain_fused(
+            model, scans, KEYFRAME_ERR_THRESH, 2.0 * KEYFRAME_ERR_THRESH)
     else:
-        poses = torch.zeros(0, 3, dtype=dtype, device=dev)
-        switched = discarded = deep_flag = torch.zeros(0, dtype=torch.bool, device=dev)
+        poses, switched, discarded, deep_flag = _chain_steps(model, scans)
     poses = torch.cat([zero[None], poses])
 
     need = (deep_flag | discarded).cpu().numpy()       # steps 1..T-1

@@ -47,9 +47,23 @@ def _pair_valid_from_seg(scan: Scan) -> Tensor:
     return ok
 
 
-def scan_project(model: LaserModel, scan: Scan, pose: Tensor) -> Projection:
-    """Project ``scan [..., N]`` posed at ``pose [..., 3]`` (relative to
-    the target frame) onto the target's bearing grid."""
+class PairGeometry(NamedTuple):
+    """Per-pair quantities of a posed scan; pair ``i`` spans beams
+    ``(i-1, i)``. All fields ``[..., N]``."""
+
+    ok: Tensor      # bool: usable for interpolation and narrower than pi
+    lo: Tensor      # least bearing of the span
+    hi: Tensor      # greatest bearing of the span
+    occl: Tensor    # bool: back-facing span (equality counts)
+    phi0: Tensor    # bearing of beam i-1
+    dphi: Tensor    # bearing step, kept away from 0
+    rr0: Tensor     # range of beam i-1
+    drr: Tensor     # range step
+
+
+def pair_geometry(model: LaserModel, scan: Scan, pose: Tensor) -> PairGeometry:
+    """Transform ``scan [..., N]`` by ``pose [..., 3]`` into the target
+    frame's polar coordinates and pair up adjacent beams."""
     r = scan.ranges
     fi = model.bearings(r.dtype, r.device)                     # [N]
     px, py, pth = pose[..., 0:1], pose[..., 1:2], pose[..., 2:3]
@@ -62,26 +76,41 @@ def scan_project(model: LaserModel, scan: Scan, pose: Tensor) -> Projection:
     # Third-quadrant lift keeps 270°-FOV scans continuous across ±pi.
     phi = torch.where((x < 0) & (y < 0), phi + 2.0 * math.pi, phi)
 
-    # Per-pair quantities; pair i spans beams (i-1, i).
     phi0 = torch.roll(phi, 1, dims=-1)
     rr0 = torch.roll(rr, 1, dims=-1)
-    pair_ok = _pair_valid_from_seg(scan) & (torch.abs(phi - phi0) < math.pi)
-    a_lo = torch.minimum(phi0, phi)
-    a_hi = torch.maximum(phi0, phi)
-    occl_pair = phi <= phi0        # back-facing span (equality counts)
-
-    # Candidate matrix over (pair i, bearing bin j).
-    mask = (fi >= a_lo[..., :, None]) & (fi <= a_hi[..., :, None])
-    mask &= pair_ok[..., :, None]                              # [..., N, N]
-
     dphi = phi - phi0
-    dphi_safe = torch.where(torch.abs(dphi) < 1e-9, 1e-9, dphi)
-    t = (fi - phi0[..., :, None]) / dphi_safe[..., :, None]
-    ri = rr0[..., :, None] + (rr - rr0)[..., :, None] * t      # [..., N, N]
+    return PairGeometry(
+        ok=_pair_valid_from_seg(scan) & (torch.abs(dphi) < math.pi),
+        lo=torch.minimum(phi0, phi),
+        hi=torch.maximum(phi0, phi),
+        occl=phi <= phi0,
+        phi0=phi0,
+        dphi=torch.where(torch.abs(dphi) < 1e-9, 1e-9, dphi),
+        rr0=rr0,
+        drr=rr - rr0,
+    )
+
+
+def project_dense(fi: Tensor, g: PairGeometry) -> Projection:
+    """Resample the pairs ``g`` at the bearings ``fi [N]``: per bin the
+    least interpolated range over the pairs that cover it, the first
+    such pair deciding occlusion."""
+    # Candidate matrix over (pair i, bearing bin j).
+    mask = (fi >= g.lo[..., :, None]) & (fi <= g.hi[..., :, None])
+    mask &= g.ok[..., :, None]                                 # [..., N, N]
+    t = (fi - g.phi0[..., :, None]) / g.dphi[..., :, None]
+    ri = g.rr0[..., :, None] + g.drr[..., :, None] * t         # [..., N, N]
 
     ri_masked = torch.where(mask, ri, EMPTY_RANGE)
     new_r, winner = torch.min(ri_masked, dim=-2)               # first argmin
     empty = ~torch.any(mask, dim=-2)
-    occluded = torch.gather(occl_pair, -1, winner) & ~empty
+    occluded = torch.gather(g.occl, -1, winner) & ~empty
     new_r = torch.where(empty, EMPTY_RANGE, new_r)
     return Projection(new_r=new_r, empty=empty, occluded=occluded)
+
+
+def scan_project(model: LaserModel, scan: Scan, pose: Tensor) -> Projection:
+    """Project ``scan [..., N]`` posed at ``pose [..., 3]`` (relative to
+    the target frame) onto the target's bearing grid."""
+    fi = model.bearings(scan.ranges.dtype, scan.ranges.device)
+    return project_dense(fi, pair_geometry(model, scan, pose))

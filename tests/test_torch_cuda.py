@@ -1,6 +1,9 @@
-"""The fused PSM CUDA kernel (K1) against the plain PyTorch matcher on the
-card. These tests need a CUDA device and skip without one; they import no
-jax, so that they run where only PyTorch is installed:
+"""The fused PSM CUDA kernel (K1) against its plain PyTorch versions on the
+card: the batch entry against ``psm.match_psm``, its error-index epilogue
+against ``psm.error_index``, the keyframe-chain entry against the step loop
+of ``odometry.odometry_keyframe``. These tests need a CUDA device and skip
+without one; they import no jax, so that they run where only PyTorch is
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -14,6 +17,7 @@ import torch
 
 from laser_slam_tpu_torch.core import scan as S
 from laser_slam_tpu_torch.core import se2
+from laser_slam_tpu_torch.ops import odometry
 from laser_slam_tpu_torch.ops import preprocess as pp
 from laser_slam_tpu_torch.ops import psm
 from laser_slam_tpu_torch.ops.cuda import psm_kernel
@@ -23,6 +27,12 @@ import synthetic_log  # noqa: E402
 
 POSE_ATOL = 1e-4    # float32 op order (fused multiply-adds, block reductions)
 ERR_RTOL = 1e-4
+# Chain entry against the step loop: both run the kernel's one arithmetic for
+# the matches and error indices; only the pose composition differs (ATen's
+# separate kernels against the chain kernel's registers), which is float32
+# round-off carried along the chain. 1e-3 m / rad leaves that three orders of
+# magnitude of room and is far below a flipped keyframe decision (> 1 cm).
+CHAIN_ATOL = 1e-3
 
 pytestmark = pytest.mark.cuda
 
@@ -49,7 +59,7 @@ def pairs(model, n, seed, dev):
     return out[0], out[1], rel
 
 
-@pytest.mark.parametrize("batch", [2, 64])
+@pytest.mark.parametrize("batch", [1, 2, 64])
 @pytest.mark.parametrize("name", ["LMS211", "LMS511", "LMS151"])
 def test_fused_kernel_matches_plain(cuda, name, batch):
     model = S.PRESETS[name]
@@ -76,3 +86,97 @@ def test_fused_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):    # inputs on two devices
         psm_kernel.match_psm_fused(model, ref.to("cpu"), cur)
     assert psm_kernel.match_psm_fused.launches == before
+
+
+@pytest.mark.parametrize("batch", [1, 2, 64])
+@pytest.mark.parametrize("name", ["LMS211", "LMS511", "LMS151"])
+def test_error_index_epilogue_matches_plain(cuda, name, batch):
+    """The epilogue against ``psm.error_index`` at the kernel's own pose;
+    the error reference is another scan than the match reference, as in the
+    keyframe step. rtol 1e-4: the sums run in another order."""
+    model = S.PRESETS[name]
+    ref, cur, rel = pairs(model, batch, 26, cuda)
+    other = S.Scan(*(torch.roll(x, 1, dims=0) for x in ref)) if batch > 1 else cur
+    init = torch.as_tensor(rel * 0.5, dtype=torch.float32, device=cuda)
+    before = psm_kernel.match_psm_fused.launches
+    k, (ex, ey, en) = psm_kernel.match_psm_fused(model, ref, cur, init, error_ref=other)
+    torch.cuda.synchronize()
+    assert psm_kernel.match_psm_fused.launches == before + 1
+    alone = psm_kernel.match_psm_fused(model, ref, cur, init)
+    for a, b in zip(k, alone):     # the epilogue leaves the match as it is
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    px, py, pn = psm.error_index(model, other, cur, k.pose)
+    np.testing.assert_array_equal(en.cpu().numpy(), pn.cpu().numpy())
+    np.testing.assert_allclose(ex.cpu().numpy(), px.cpu().numpy(), rtol=ERR_RTOL)
+    np.testing.assert_allclose(ey.cpu().numpy(), py.cpu().numpy(), rtol=ERR_RTOL)
+    assert (en > 0).any()
+    # No overlapping beam reads as the worst error.
+    far = torch.tensor([[30.0, 30.0, 0.0]] * batch, device=cuda)
+    ident = S.Scan(cur.ranges, torch.ones_like(cur.bad), cur.seg)   # an all-bad reference
+    _, (fx, fy, fn) = psm_kernel.match_psm_fused(model, ident, cur, far, error_ref=ident)
+    assert (fn == 0).all() and (fx == 1e6).all() and (fy == 1e6).all()
+
+
+def synthetic_scans(model, n_scans, dev, blind=()):
+    """The synthetic log's trajectory (three whips behind dt gaps, so some
+    steps switch keyframes and some fail) ray-cast at ``model``'s beams;
+    the scans listed in ``blind`` see nothing (every beam out of range), so
+    both of their matches fail and the chain drops them."""
+    rng = np.random.default_rng(5)
+    gt, ts = synthetic_log.trajectory(n_scans)
+    r = synthetic_log.ray_cast(synthetic_log.floor_plan(), gt,
+                               model.bearings(torch.float64).numpy())
+    r = np.where(r <= synthetic_log.MAX_RANGE, r + rng.normal(0.0, synthetic_log.NOISE, r.shape), r)
+    r[list(blind)] = model.max_range + 1.0
+    return pp.preprocess(torch.as_tensor(r.astype(np.float32), device=dev), model), ts
+
+
+@pytest.mark.parametrize("name,n_scans", [("LMS211", 300), ("LMS511", 120), ("LMS151", 120)])
+def test_chain_entry_matches_step_loop(cuda, name, n_scans):
+    model = S.PRESETS[name]
+    blind = (40, 41, 90)
+    scans, ts = synthetic_scans(model, n_scans, cuda, blind)
+    chain_before = psm_kernel.odometry_chain_fused.launches
+    match_before = psm_kernel.match_psm_fused.launches
+    got = psm_kernel.odometry_chain_fused(
+        model, scans, odometry.KEYFRAME_ERR_THRESH, 2.0 * odometry.KEYFRAME_ERR_THRESH)
+    torch.cuda.synchronize()
+    assert psm_kernel.odometry_chain_fused.launches == chain_before + 1
+    assert psm_kernel.match_psm_fused.launches == match_before
+    want = odometry._chain_steps(model, scans)
+    assert psm_kernel.match_psm_fused.launches == match_before + n_scans - 1
+    for g, w in zip(got[1:], want[1:]):        # switched, discarded, deep flag
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), atol=CHAIN_ATOL)
+    assert got[1].any()                        # keyframes were switched
+    # Blind scans are discarded (step i-1 is scan i), and the scan after one
+    # is matched against the last scan that was kept.
+    assert got[2].cpu().numpy()[[b - 1 for b in blind]].all()
+    np.testing.assert_array_equal(got[0][39].cpu().numpy(), got[0][40].cpu().numpy())
+    iters = psm_kernel.odometry_chain_fused.last_iters.cpu().numpy()
+    assert iters.shape == (n_scans - 1, 2) and (iters >= 1).all() and (iters <= 15).all()
+
+    # The whole of odometry_keyframe by both routes, pass 2 included.
+    a = odometry.odometry_keyframe(model, scans, deep_chunk=8, timestamps=ts)
+    b = odometry.odometry_keyframe(model, scans, deep_chunk=8, timestamps=ts, chain="steps")
+    for f in ("switched", "discarded", "weak", "fracture", "rematched"):
+        np.testing.assert_array_equal(getattr(a, f).cpu().numpy(), getattr(b, f).cpu().numpy())
+    np.testing.assert_allclose(a.poses.cpu().numpy(), b.poses.cpu().numpy(), atol=CHAIN_ATOL)
+
+
+def test_chain_entry_edge_cases(cuda):
+    model = S.LMS211
+    scans, _ = synthetic_scans(model, 3, cuda)
+    one = S.Scan(*(x[:1] for x in scans))
+    before = psm_kernel.odometry_chain_fused.launches
+    poses, sw, disc, deep = psm_kernel.odometry_chain_fused(model, one, 0.05, 0.10)
+    assert poses.shape == (0, 3) and sw.shape == disc.shape == deep.shape == (0,)
+    assert psm_kernel.odometry_chain_fused.launches == before    # nothing to launch
+    two = S.Scan(*(x[:2] for x in scans))
+    got = psm_kernel.odometry_chain_fused(model, two, 0.05, 0.10)
+    want = odometry._chain_steps(model, two)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), atol=CHAIN_ATOL)
+    with pytest.raises(ValueError):    # a beam count the model does not have
+        psm_kernel.odometry_chain_fused(S.LMS511, scans, 0.05, 0.10)
+    with pytest.raises(ValueError):    # CPU tensors: the plain version is the step loop
+        psm_kernel.odometry_chain_fused(model, scans.to("cpu"), 0.05, 0.10)

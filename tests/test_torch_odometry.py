@@ -128,3 +128,44 @@ def test_odometry_pairwise_matches_jax(inject, monkeypatch):
     np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses),
                                atol=POSE_ATOL if inject else END_TO_END_ATOL)
     assert got.switched[1:].all() and not got.switched[0]
+
+
+def test_odometry_keyframe_chain_argument_on_cpu():
+    """On CPU tensors both routes are the step loop, the plain version of
+    the fused chain; the chain entry itself takes CUDA tensors only."""
+    gt, ts, js, tsc = both_scans()
+    short = type(tsc)(*(x[:8] for x in tsc))
+    a = todo.odometry_keyframe(TMODEL, short, deep_chunk=2, timestamps=ts[:8])
+    launches = psm_kernel.odometry_chain_fused.launches
+    b = todo.odometry_keyframe(TMODEL, short, deep_chunk=2, timestamps=ts[:8], chain="steps")
+    assert psm_kernel.odometry_chain_fused.launches == launches
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    with pytest.raises(ValueError):
+        todo.odometry_keyframe(TMODEL, short, chain="graph")
+    with pytest.raises(ValueError):
+        psm_kernel.odometry_chain_fused(TMODEL, short, 0.05, 0.10)
+
+
+def test_step_matches_jax_step():
+    """One keyframe step from a carry whose keyframe, previous scan and
+    prior differ, against JAX's ``_step``: both matches, both error indices
+    against the previous scan, the selects and the composition."""
+    gt, ts, js, tsc = both_scans()
+    row = lambda s, i: type(s)(*(x[i] for x in s))
+    prior = np.asarray([0.09, 0.01, 0.07], np.float32)
+    ref_g = np.asarray([0.3, -0.2, 0.5], np.float32)
+    last_g = np.asarray([0.38, -0.15, 0.57], np.float32)
+    jc = jodo._OdoCarry(ref=row(js, 3), last=row(js, 5), ref_gpose=jnp.asarray(ref_g),
+                        last_gpose=jnp.asarray(last_g), prior_rel=jnp.asarray(prior))
+    tc = todo._OdoCarry(ref=row(tsc, 3), last=row(tsc, 5), ref_gpose=torch.from_numpy(ref_g),
+                        last_gpose=torch.from_numpy(last_g), prior_rel=torch.from_numpy(prior))
+    # JAX's deferred variant flags the step for pass 2, as the port's does.
+    jn, jout = jodo._step(MODEL, jc, row(js, 6), deep_inline=False)
+    tn, tout = todo._step(TMODEL, tc, row(tsc, 6))
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), atol=POSE_ATOL)
+    for a, b in zip(tout[1:], jout[1:4]):    # switched, discarded, deep flag
+        assert bool(a) == bool(b)
+    np.testing.assert_allclose(tn.prior_rel.numpy(), np.asarray(jn.prior_rel), atol=POSE_ATOL)
+    np.testing.assert_array_equal(tn.ref.ranges.numpy(), np.asarray(jn.ref.ranges))
+    np.testing.assert_array_equal(tn.last.ranges.numpy(), np.asarray(jn.last.ranges))

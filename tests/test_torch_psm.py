@@ -142,3 +142,33 @@ def test_fused_wrapper_on_cpu_is_the_plain_version():
     meta = Scan(*(x.to("meta") for x in ta))
     with pytest.raises(ValueError):
         psm_kernel.match_psm_fused(tm, meta, meta)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_fused_wrapper_with_error_ref_matches_jax(name):
+    """``match_psm_fused(..., error_ref=last)`` on CPU tensors (the plain
+    match plus the plain error index) against JAX's ``match_psm`` and
+    ``error_index`` on the same numpy inputs; the error reference is
+    another scan than the match reference, as in the keyframe step."""
+    jm, tm, ja, jb, ta, tb, rel = both(name)
+    init = (rel + np.random.default_rng(21).normal(0, 0.02, rel.shape)).astype(np.float32)
+    # Each pair's error reference: the reference scan of the next pair.
+    jl = jscan.Scan(*(jnp.roll(x, 1, axis=0) for x in ja))
+    tl = Scan(*(torch.roll(x, 1, dims=0) for x in ta))
+    want = jax.jit(jax.vmap(lambda a, b, p: jpsm.match_psm(jm, a, b, p)))(
+        ja, jb, jnp.asarray(init))
+    want_ei = jax.vmap(lambda a, b, p: jpsm.error_index(jm, a, b, p))(jl, jb, want.pose)
+    before = psm_kernel.match_psm_fused.launches
+    got, got_ei = psm_kernel.match_psm_fused(tm, ta, tb, torch.from_numpy(init), error_ref=tl)
+    assert psm_kernel.match_psm_fused.launches == before   # CPU: plain versions
+    np.testing.assert_array_equal(got.fail.numpy(), np.asarray(want.fail))
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=POSE_ATOL)
+    # The error index is a mean over the beams that agree within 1 m at a
+    # pose that differs by up to POSE_ATOL, hence rtol 1e-3.
+    np.testing.assert_allclose(got_ei[0].numpy(), np.asarray(want_ei[0]), rtol=1e-3, atol=1e-9)
+    np.testing.assert_allclose(got_ei[1].numpy(), np.asarray(want_ei[1]), rtol=1e-3, atol=1e-9)
+    np.testing.assert_array_equal(got_ei[2].numpy(), np.asarray(want_ei[2]))
+    # It is the plain error index at the plain match's pose.
+    plain = tpsm.error_index(tm, tl, tb, got.pose)
+    for x, y in zip(got_ei, plain):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())

@@ -175,3 +175,14 @@ def test_port_imports_without_jax():
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "laser_slam_tpu." not in text.replace("laser_slam_tpu_torch", ""), path
+
+
+def test_cli_defaults_to_cuda_and_raises_without_one(small_log, monkeypatch):
+    """Without ``--device`` the CLI runs on ``cuda``; where there is no
+    CUDA device it raises and does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["odometry", small_log])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["draw", small_log, "--device", "cuda:0"])
+    assert tcli._device("cpu") == torch.device("cpu")
