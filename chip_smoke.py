@@ -27,7 +27,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the step; a ``torch.profiler`` trace of the keyframe odometry (kernel
    counts, device busy and idle share); each layer of the path again,
    alone, for its share of the time;
-5. the bundled intel-lab log, when present at the repo's reference-data
+5. ``laser_slam_tpu_torch.cli slam`` on the same log on ``cuda`` at
+   ``SlamConfig()`` defaults, twice (first call and warm): keyframe
+   odometry (K1's chain entry) → submaps → signature gate → wide clouds
+   → eight waves of propose, verify in chunks of 32, robust solve →
+   re-attachment. Held: the chain entry launched, all waves ran, a
+   strict loop banked and used, finite poses, SLAM ATE below the run's
+   odometry ATE; the used loops are classified against the ground
+   truth. Then one wave under ``torch.profiler``: the device time of the
+   hot spots that stay library calls (nearest-two search, score-volume
+   convolution, peak suppression, sorts and dense solves);
+6. the bundled intel-lab log, when present at the repo's reference-data
    location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
 
 The last three lines of stdout are the kernels' JSON record, the card's
@@ -36,6 +46,7 @@ name and power limit, and the device JSON line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -94,6 +105,21 @@ OPS_PROJECT, OPS_SHIFT, OPS_TRANSLATE, OPS_INDEX = 40, 4, 22, 8
 # iteration count out; the error index's two floats and a count; a chain
 # step's pose, three flags and two iteration counts.
 MATCH_IO_BYTES, INDEX_OUT_BYTES, CHAIN_STEP_OUT_BYTES = 12 + 12 + 4 + 1 + 4, 12, 12 + 3 + 8
+
+
+# ``torch.profiler.record_function`` ranges in the port that mark the hot
+# spots which stay library calls: their device seconds are read from a trace.
+HOT_SPOTS = {
+    "h1_nearest_two": "H1 distance matrix + two argmins (ops/icp_points)",
+    "h2_score_volume_conv": "H2 grouped conv2d (ops/correlative)",
+    "h3_peak_nms": "H3 max_pool3d + stable sort (ops/correlative)",
+    "h4_sort": "H4 voxel-key sorts (graph/submap.reduce_group)",
+    "h4_solve": "H4 dense LU solves (graph/solve)",
+}
+# ATen operators whose device seconds the wave trace also lists.
+ATEN_OPS = ("aten::sort", "aten::argmin", "aten::cudnn_convolution", "aten::max_pool3d_with_indices",
+            "aten::_conv_depthwise2d", "aten::linalg_solve_ex", "aten::index_put_",
+            "aten::scatter_", "aten::gather")
 
 
 def phase(name: str, msg: str) -> None:
@@ -201,11 +227,14 @@ def n_bytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def trace(fn):
+def trace(fn, host_ops=None):
     """Runs ``fn()`` under ``torch.profiler`` and returns ``(wall seconds,
     number of device operations, device-busy seconds as the union of their
     intervals, {kernel: (count, seconds)})``, K1's two entries by name and
-    everything else as ``other``."""
+    everything else as ``other``. With a dict ``host_ops``, it is filled
+    with ``{name: (calls, device seconds)}`` of the host-side ranges and
+    operators named in ``HOT_SPOTS`` and ``ATEN_OPS``: the device time of
+    the kernels each launched."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -214,8 +243,16 @@ def trace(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # Device-side events; a record_function range's mirror on the device
+    # timeline is not an operation.
     ops = [e for e in prof.events()
-           if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start]
+           if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start
+           and e.name not in HOT_SPOTS]
+    if host_ops is not None:
+        for e in prof.events():
+            if str(e.device_type).endswith("CPU") and (e.name in HOT_SPOTS or e.name in ATEN_OPS):
+                calls, seconds = host_ops.get(e.name, (0, 0.0))
+                host_ops[e.name] = (calls + 1, seconds + e.device_time_total / 1e6)
     by_name, busy, edge = {}, 0.0, None
     for e in sorted(ops, key=lambda e: e.time_range.start):
         key = next((k for k in ("psm_chain_kernel", "psm_match_kernel") if k in e.name), "other")
@@ -242,6 +279,109 @@ def host_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def slam_phase(cli, K, log_path, log, smi):
+    """Drives ``cli slam`` on ``cuda`` at ``SlamConfig()`` defaults, twice,
+    holds the result (see the module docstring), prints the ``[slam]``
+    lines and the trace of one wave. Returns K1's chain-entry launches of
+    the first run."""
+    from laser_slam_tpu_torch.eval.diagnostics import classify_loops
+    from laser_slam_tpu_torch.graph import solve
+    from laser_slam_tpu_torch.graph.submap import build_submaps
+    from laser_slam_tpu_torch.runtime import slam
+
+    cfg = slam.SlamConfig()
+    waves = cfg.rounds + cfg.cov_rounds
+    runs, chain_launches = [], None
+    # Every LM iteration solves the normal equations once and then reads its
+    # accept flags on the host: the calls count the solver's device syncs.
+    solve_normal, lm_iterations = solve._solve_normal, [0]
+
+    def counting(g, lam):
+        lm_iterations[0] += 1
+        return solve_normal(g, lam)
+
+    for label in ("first call", "warm"):
+        K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        lm_iterations[0] = 0
+        solve._solve_normal = counting
+        try:
+            run = cli.main(["slam", log_path, "--device", "cuda"])
+        finally:
+            solve._solve_normal = solve_normal
+        torch.cuda.synchronize()
+        launches = (K.odometry_chain_fused.launches, K.match_psm_fused.launches)
+        if chain_launches is None:
+            chain_launches = launches[0]
+        res, tm, bank = run.result, run.diag["timing"], run.diag["bank"]
+        t = log.n_scans
+        if any(x.device.type != "cuda" for x in res):
+            raise AssertionError("a tensor of the SLAM result is not on cuda")
+        poses = res.poses.cpu().numpy()
+        if poses.shape != (t, 3) or not np.isfinite(poses).all():
+            raise AssertionError(f"bad SLAM trajectory: shape {poses.shape}")
+        if launches != (1, 0):
+            raise AssertionError(f"slam launched K1's chain entry {launches[0]} times (expected "
+                                 f"once) and its batch entry {launches[1]} times")
+        if any(len(tm[k]) != waves for k in ("propose", "verify", "solve")):
+            raise AssertionError(f"not all {waves} waves ran: {tm}")
+        strict = bank["act"] & bank["strict"]
+        used = bank["used"]
+        if not (strict.sum() >= 1 and (used & strict).sum() >= 1 and int(res.n_loops) == used.sum()):
+            raise AssertionError(f"no strict loop banked and used: banked {int(bank['act'].sum())}, "
+                                 f"strict {int(strict.sum())}, used {int(used.sum())}")
+        ate_odo, ate_slam = float(run.ate_odo.rmse), float(run.ate.rmse)
+        gt_anchor = log.gt_pose[res.anchor_idx.cpu().numpy()]
+        rep = classify_loops(bank["src"], bank["dst"], bank["rel"], used, gt_anchor)
+        wrong = 1.0 - rep.n_correct / max(rep.n, 1)
+        verify_s = float(np.sum(tm["verify"]))
+        phase("slam", f"{label}: {t} scans, {gt_anchor.shape[0]} anchors, {waves} waves of "
+                      f"{cfg.max_loops} candidates in chunks of {cfg.verify_chunk}: slam_offline "
+                      f"{run.seconds:.3f}s; peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        phase("slam", f"{label}: stage seconds " + json.dumps({
+            k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4))
+            for k, v in tm.items()}))
+        phase("slam", f"{label}: verify {waves * cfg.max_loops / verify_s:.1f} pairs/s "
+                      f"({verify_s:.3f}s for {waves * cfg.max_loops} pairs); loops banked "
+                      f"{int(bank['act'].sum())} / strict {int(strict.sum())} / used "
+                      f"{int(used.sum())}; ATE odometry {ate_odo:.4f} m -> SLAM {ate_slam:.4f} m; "
+                      f"used loops wrong (> 0.5 m or 0.2 rad from the ground truth) "
+                      f"{rep.n - rep.n_correct} of {rep.n} = {wrong:.4f}; chi2 {float(res.chi2):.3f}; "
+                      f"LM iterations (one host sync each) {lm_iterations[0]} in {2 * waves} solves")
+        if not ate_slam < ate_odo:
+            raise AssertionError(f"SLAM ATE {ate_slam} is not below the odometry ATE {ate_odo}")
+        runs.append((poses, ate_slam, used))
+    same = np.array_equal(runs[0][0], runs[1][0])
+    phase("slam", f"two runs: trajectories bit-identical {same}, max |dpose| "
+                  f"{float(np.abs(runs[0][0] - runs[1][0]).max()):.3g}, ATE {runs[0][1]:.6f} / "
+                  f"{runs[1][1]:.6f} m, used-loop masks equal "
+                  f"{bool(np.array_equal(runs[0][2], runs[1][2]))}")
+
+    # One wave (the first: from the odometry estimate, an empty bank) under
+    # the profiler, with the signature gate and the wide clouds before it.
+    dev = torch.device("cuda")
+    ranges = torch.as_tensor(log.ranges, device=dev)
+    (scans, odo_poses, _, _, anchor_poses, rel_seq, seq_weight, block_id) = slam._frontend(
+        log.model, cfg, ranges, log.timestamps)
+    submaps = build_submaps(log.model, scans, odo_poses, cfg.anchor_stride, cfg.submap_points)
+    one_wave = dataclasses.replace(cfg, rounds=1, cov_rounds=0)
+    host_ops = {}
+    wall, n_ops, busy, _ = trace(lambda: slam.run_correlative_rounds(
+        one_wave, submaps, anchor_poses, rel_seq, seq_weight, block_id=block_id), host_ops)
+    phase("trace", "one slam wave: " + json.dumps({
+        "traced_wall_s": wall, "device_ops": n_ops, "device_busy_s": busy,
+        "idle_share_of_traced_wall": 1.0 - busy / wall,
+        "hot_spots_device_s": {k: {"what": HOT_SPOTS[k], "calls": host_ops.get(k, (0, 0.0))[0],
+                                   "seconds": host_ops.get(k, (0, 0.0))[1]} for k in HOT_SPOTS},
+        "aten_ops_device_s": {k: {"calls": v[0], "seconds": v[1]}
+                              for k, v in host_ops.items() if k not in HOT_SPOTS},
+        "card": smi}))
+    if n_ops == 0 or host_ops.get("h1_nearest_two", (0, 0.0))[0] == 0:
+        raise AssertionError("the traced wave ran no device operation of the verifier")
+    return chain_launches
 
 
 def main() -> None:
@@ -492,6 +632,9 @@ def main() -> None:
             "steps_route_odometry_s": steps_s, "steps_route_pass1_s": chain_plain_ms / 1e3,
             "ate_rpe_s": t_metrics, "map_s": t_map, "card": smi}))
 
+        # -- 5. the SLAM main path -------------------------------------------
+        slam_chain_launches = slam_phase(cli, K, log_path, log, smi)
+
     # Small input against the plain version on the CPU: the first 300
     # pairs. Float transcendentals differ between the two devices in the
     # last bit, which can flip which pair covers a bin at a segment end in
@@ -502,7 +645,7 @@ def main() -> None:
                         psm.match_psm(lms211, a.to("cpu"), b.to("cpu")),
                         f"{lms211.name} x300, plain on cpu")
 
-    # -- 5. the bundled intel-lab log, when present -------------------------
+    # -- 6. the bundled intel-lab log, when present -------------------------
     if INTEL_LOG.exists():
         run = cli.main(["odometry", str(INTEL_LOG), "--device", "cuda"])
         ate = float(run.ate.rmse)
@@ -519,7 +662,7 @@ def main() -> None:
         {
             "name": "psm_chain_kernel (K1, keyframe chain entry: pass 1 of a whole log)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": chain_launches,
+            "launches": chain_launches, "launches_cli_slam": slam_chain_launches,
             "max_abs_err": chain_err,
             "ms": chain_ms, "plain_ms": chain_plain_ms,
             "bound_ms": chain_bound, "bound_by": chain_bound_by,
@@ -529,7 +672,7 @@ def main() -> None:
         {
             "name": "psm_match_kernel (K1, batch entry: one block per pair)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": batch_launches,
+            "launches": batch_launches, "launches_cli_slam": 0,
             "max_abs_err": max(s["max_abs_err"] for s in stats),
             "ms": batch_ms, "plain_ms": batch_plain_ms,
             "bound_ms": batch_bound, "bound_by": batch_bound_by,

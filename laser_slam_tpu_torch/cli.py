@@ -5,6 +5,10 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
 - ``odometry``: read a CARMEN log → preprocess → keyframe (or pairwise)
   odometry → ATE/RPE against the log's ground truth, optionally write
   the trajectory (``--out``) and an occupancy-map PNG (``--map``).
+- ``slam``: read a CARMEN log → keyframe odometry → submaps → loop-
+  closure waves (propose, verify, robust pose-graph solve) → ATE of the
+  odometry and of the optimized trajectory, optionally write the
+  trajectory (``--out``) and an occupancy-map PNG (``--map``).
 - ``draw``: render an occupancy-map PNG from a log and a trajectory.
 
 ``--device`` picks where the tensors live: ``cuda`` by default, and the
@@ -31,6 +35,18 @@ class OdometryRun(NamedTuple):
     seconds: float       # odometry wall time (incl. kernel build)
     ate: object | None   # eval.metrics.AteResult
     rpe: tuple | None    # (translation [T-1], rotation [T-1])
+    grid: object | None  # mapping.occupancy.OccupancyGrid
+
+
+class SlamRun(NamedTuple):
+    """What ``slam`` computed, for callers of :func:`main`."""
+
+    log: object          # io.carmen.CarmenLog
+    result: object       # runtime.slam.SlamResult
+    seconds: float       # slam_offline wall time (incl. kernel build)
+    ate_odo: object | None   # eval.metrics.AteResult of the odometry
+    ate: object | None       # ... of the optimized trajectory
+    diag: dict           # loop bank, anchor poses, stage seconds
     grid: object | None  # mapping.occupancy.OccupancyGrid
 
 
@@ -86,6 +102,43 @@ def cmd_odometry(args) -> OdometryRun:
     return OdometryRun(log, scans, res, dt, a, r, grid)
 
 
+def cmd_slam(args) -> SlamRun:
+    from .eval.metrics import ate
+    from .ops.preprocess import preprocess
+    from .runtime.slam import SlamConfig, slam_offline
+
+    dev = _device(args.device)
+    log = _load(args.log, args.scans)
+    cfg = SlamConfig(
+        anchor_stride=args.stride, rounds=args.rounds,
+        loop_radius=args.radius, max_loops=args.max_loops,
+    )
+    diag: dict = {}
+    t0 = time.time()
+    res = slam_offline(log.model, log.ranges, cfg, diag=diag,
+                       timestamps=log.timestamps, device=dev)
+    _sync(dev)
+    dt = time.time() - t0
+    print(
+        f"{log.n_scans} scans in {dt:.1f}s; "
+        f"loops={int(res.n_loops)} chi2={float(res.chi2):.2f}"
+    )
+    a_odo = a = None
+    if log.gt_pose.size:
+        gt = torch.as_tensor(log.gt_pose[: res.poses.shape[0]], device=dev)
+        a_odo, a = ate(res.odo_poses, gt), ate(res.poses, gt)
+        print(f"ATE odometry rmse={float(a_odo.rmse):.3f}m")
+        print(f"ATE slam     rmse={float(a.rmse):.3f}m")
+    if args.out:
+        np.savetxt(args.out, res.poses.cpu().numpy(), fmt="%.6f")
+        print(f"trajectory -> {args.out}")
+    grid = None
+    if args.map:
+        scans = preprocess(torch.as_tensor(log.ranges, device=dev), log.model)
+        grid = _render(log, scans, res.poses, args.map, args.resolution)
+    return SlamRun(log, res, dt, a_odo, a, diag, grid)
+
+
 def _render(log, scans, poses, out, resolution):
     from .mapping.occupancy import empty_grid, integrate_scans, spec_for_trajectory
     from .viz.render import render_map_png
@@ -134,6 +187,20 @@ def main(argv=None):
     sp.add_argument("--map", help="write an occupancy-map PNG here")
     sp.add_argument("--resolution", type=float, default=0.05)
     sp.set_defaults(fn=cmd_odometry)
+
+    from .runtime.slam import SlamConfig
+
+    dflt = SlamConfig()
+    sp = sub.add_parser("slam", help="full SLAM with loop closure")
+    common(sp)
+    sp.add_argument("--stride", type=int, default=dflt.anchor_stride)
+    sp.add_argument("--rounds", type=int, default=dflt.rounds)
+    sp.add_argument("--radius", type=float, default=dflt.loop_radius)
+    sp.add_argument("--max-loops", type=int, default=dflt.max_loops)
+    sp.add_argument("--out")
+    sp.add_argument("--map", help="write an occupancy-map PNG here")
+    sp.add_argument("--resolution", type=float, default=0.05)
+    sp.set_defaults(fn=cmd_slam)
 
     sp = sub.add_parser("draw", help="render occupancy map PNG from a log")
     common(sp)

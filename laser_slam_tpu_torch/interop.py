@@ -1,8 +1,11 @@
 """State carried between this port and ``laser_slam_tpu``.
 
-The system has no weights; its state is the laser model, scans, poses
-and grids. These helpers move them through plain python / numpy, so
-neither package imports the other.
+The system has no weights; its state is the laser model, scans, poses,
+grids, submaps, loop candidates and verified loops, the pose graph, the
+loop bank and the SLAM configuration. These helpers move them through
+plain python / numpy, so neither package imports the other. Index
+arrays become ``int64`` tensors (what ``gather`` and indexing take) and
+go back as ``int32``, the type the JAX package keeps them in.
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ import numpy as np
 import torch
 
 from .core.scan import LaserModel, Scan
+from .graph.loop_closure import LoopCandidates, VerifiedLoops
+from .graph.solve import PoseGraph
+from .graph.submap import Submaps
 from .mapping.occupancy import GridSpec2D, OccupancyGrid
+from .runtime.slam import SlamConfig
 
 
 def model_from_fields(d: dict) -> LaserModel:
@@ -50,3 +57,56 @@ def grid_from_numpy(log_odds, spec_fields: dict, device=None) -> OccupancyGrid:
 
 def grid_to_numpy(grid: OccupancyGrid) -> tuple[np.ndarray, dict]:
     return grid.log_odds.detach().cpu().numpy(), dataclasses.asdict(grid.spec)
+
+
+_INDEX_FIELDS = {"src", "dst", "i", "j", "anchor_idx", "kernel"}
+
+
+def _tensor(name: str, value, device):
+    if value is None or isinstance(value, dict):
+        return None
+    a = np.asarray(value)
+    if name in _INDEX_FIELDS:
+        return torch.tensor(a.astype(np.int64), device=device)
+    return torch.tensor(a, device=device)
+
+
+def _array(name: str, value):
+    if value is None or isinstance(value, dict):
+        return None
+    a = value.detach().cpu().numpy()
+    return a.astype(np.int32) if name in _INDEX_FIELDS else a
+
+
+def state_from_numpy(cls, fields: dict, device=None):
+    """A port ``Submaps``, ``LoopCandidates``, ``VerifiedLoops`` or
+    ``PoseGraph`` from the field dict of its JAX namesake (``x._asdict()``
+    with array values; a ``diag`` dict is dropped)."""
+    if cls not in (Submaps, LoopCandidates, VerifiedLoops, PoseGraph):
+        raise TypeError(f"state_from_numpy: {cls!r} is not a state tuple of the port")
+    return cls(**{k: _tensor(k, v, device) for k, v in fields.items()})
+
+
+def state_to_numpy(state) -> dict:
+    """The field dict of a port state tuple, as numpy arrays."""
+    return {k: _array(k, v) for k, v in state._asdict().items()}
+
+
+def bank_from_numpy(bank: dict) -> dict:
+    """A copy of a loop bank (the host-side dict of
+    ``run_correlative_rounds``: ``src``, ``dst``, ``rel``, ``q``, ``act``,
+    ``strict``, ``cov`` and, after a solve, ``used``) with the types the
+    bookkeeping expects. Both packages keep the bank in numpy."""
+    types = {"src": np.int32, "dst": np.int32, "rel": np.float32, "q": np.float32,
+             "act": bool, "strict": bool, "cov": np.float32, "used": bool}
+    return {k: np.array(v, dtype=types[k]) for k, v in bank.items()}
+
+
+def config_from_fields(d: dict) -> SlamConfig:
+    """A port :class:`SlamConfig` from the field dict of a JAX
+    ``SlamConfig`` (``dataclasses.asdict``)."""
+    return SlamConfig(**d)
+
+
+def config_to_fields(cfg: SlamConfig) -> dict:
+    return dataclasses.asdict(cfg)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
@@ -159,7 +160,8 @@ def correlative_score_volume(
     n_valid = torch.clamp(torch.sum(ok, dim=-1), min=1).to(dtype)      # [B]
     if not overlap_norm:
         pad = F.pad(grid, (n_steps,) * 4)[None]                        # [1, B, ., .]
-        vol = _conv2d(pad, raster, b).view(b, k, t, t)
+        with record_function("h2_score_volume_conv"):
+            vol = _conv2d(pad, raster, b).view(b, k, t, t)
         return vol / n_valid[:, None, None, None]
 
     w = 2 * max(int(round(overlap_radius / res)), 1) + 1
@@ -168,7 +170,8 @@ def correlative_score_volume(
     )[:, 0]
     both = torch.stack([grid, cover])                                  # [2, B, G, G]
     pad = F.pad(both, (n_steps,) * 4)
-    out = _conv2d(pad, raster, b).view(2, b, k, t, t)
+    with record_function("h2_score_volume_conv"):
+        out = _conv2d(pad, raster, b).view(2, b, k, t, t)
     vol, n_overlap = out[0], out[1]
     denom = torch.maximum(n_overlap, overlap_floor * n_valid[:, None, None, None])
     return vol / denom
@@ -240,3 +243,107 @@ def match_correlative(
         pose = torch.where(icp.fail[:, None], pose, icp.pose)
 
     return CorrelativeResult(pose=pose, score=best, fail=best < MIN_SCORE)
+
+
+def _search_grid(init_pose: Tensor, search_xy: float, search_theta: float,
+                 n_theta: int, res: float):
+    """Rotations ``[B, K]`` about ``init_pose``'s heading, the half-width
+    of the translation window in cells, and its offsets ``[T]``."""
+    dtype, dev = init_pose.dtype, init_pose.device
+    thetas = init_pose[:, 2:3] + _linspace(-search_theta, search_theta, n_theta, dtype, dev)
+    n_steps = int(round(search_xy / res))
+    steps = torch.arange(-n_steps, n_steps + 1, dtype=dtype, device=dev) * res
+    return thetas, n_steps, steps
+
+
+def _poses_at(init_pose: Tensor, thetas: Tensor, steps: Tensor, idx: Tensor) -> Tensor:
+    """Poses ``[B, P, 3]`` of the flat volume cells ``idx [B, P]`` (θ,
+    y-shift, x-shift order)."""
+    t = steps.shape[0]
+    kk, ka, kb = idx // (t * t), (idx // t) % t, idx % t
+    return torch.stack(
+        [
+            init_pose[:, 0:1] + steps[kb],                 # x from the last axis
+            init_pose[:, 1:2] + steps[ka],                 # y from the middle axis
+            se2.normalize_angle(torch.gather(thetas, 1, kk)),
+        ],
+        dim=-1,
+    )
+
+
+def correlative_top_peaks(
+    ref_pts: Tensor,
+    ref_ok: Tensor,
+    cur_pts: Tensor,
+    cur_ok: Tensor,
+    init_pose: Tensor,
+    n_peaks: int = 4,
+    search_xy: float = 5.0,
+    search_theta: float = math.pi,
+    n_theta: int = 72,
+    res: float = 0.3,
+    half_extent: float = 12.8,
+    blur_sigma: float = 1.0,
+    overlap_norm: bool = False,
+    grid: Tensor | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Top ``n_peaks`` non-max-suppressed local maxima of the correlative
+    score volumes of a batch of cloud pairs: ``(poses [B, P, 3], scores
+    [B, P])``, best first. Pass prebuilt ``grid [B, G, G]`` to amortize
+    the rasterization over several query clouds against one reference.
+
+    Partial-overlap matching (loop closure between submaps that share
+    only part of their coverage) routinely puts the *true* alignment at
+    a secondary peak, so every peak must be polished and gated, not just
+    the winner. NMS window: ±2 rotation samples × ±1 cell; a plateau
+    passes whole (``vol >= pooled``), and among equal scores the lower
+    flat index comes first (a stable descending sort)."""
+    if grid is None:
+        grid = build_likelihood_grid_points(
+            ref_pts, ref_ok, res=res, half_extent=half_extent, blur_sigma=blur_sigma
+        )
+    thetas, n_steps, steps = _search_grid(init_pose, search_xy, search_theta, n_theta, res)
+    vol = correlative_score_volume(
+        grid, cur_pts, cur_ok, thetas, n_steps, res, half_extent,
+        init_pose[:, :2], overlap_norm=overlap_norm,
+    )                                                      # [B, K, Ty, Tx]
+    with record_function("h3_peak_nms"):
+        # max_pool3d pads with -inf, as a "SAME" max window does.
+        pooled = F.max_pool3d(vol[:, None], (5, 3, 3), stride=1, padding=(2, 1, 1))[:, 0]
+        flat = torch.where(vol >= pooled, vol, -torch.inf).reshape(vol.shape[0], -1)
+        srt = torch.sort(flat, dim=-1, descending=True, stable=True)
+        scores, idx = srt.values[:, :n_peaks], srt.indices[:, :n_peaks]
+    poses = _poses_at(init_pose, thetas, steps, idx)
+    return poses, torch.where(torch.isfinite(scores), scores, 0.0)
+
+
+def match_correlative_points(
+    ref_pts: Tensor,
+    ref_ok: Tensor,
+    cur_pts: Tensor,
+    cur_ok: Tensor,
+    init_pose: Tensor,
+    search_xy: float = 8.0,
+    search_theta: float = 0.8,
+    n_theta: int = 33,
+    res: float = 0.3,
+    half_extent: float = 20.0,
+    blur_sigma: float = 1.0,
+    min_score: float = MIN_SCORE,
+) -> CorrelativeResult:
+    """Coarse correlative match of masked point clouds ``[B, N, 2]``
+    against references ``[B, M, 2]`` over ``±search_xy × ±search_theta``
+    centered on ``init_pose [B, 3]``: the init-free front of loop
+    closure, exhaustive over a drift-sized window. The result is
+    cell-quantized; polish with ``match_icp_points`` for metric accuracy."""
+    grid = build_likelihood_grid_points(
+        ref_pts, ref_ok, res=res, half_extent=half_extent, blur_sigma=blur_sigma
+    )
+    thetas, n_steps, steps = _search_grid(init_pose, search_xy, search_theta, n_theta, res)
+    score = correlative_score_volume(
+        grid, cur_pts, cur_ok, thetas, n_steps, res, half_extent, init_pose[:, :2]
+    ).reshape(init_pose.shape[0], -1)
+    k = torch.argmax(score, dim=-1, keepdim=True)          # first on ties
+    best = torch.gather(score, 1, k)[:, 0]
+    pose = _poses_at(init_pose, thetas, steps, k)[:, 0]
+    return CorrelativeResult(pose=pose, score=best, fail=best < min_score)

@@ -1,7 +1,9 @@
 """The fused PSM CUDA kernel (K1) against its plain PyTorch versions on the
 card: the batch entry against ``psm.match_psm``, its error-index epilogue
 against ``psm.error_index``, the keyframe-chain entry against the step loop
-of ``odometry.odometry_keyframe``. These tests need a CUDA device and skip
+of ``odometry.odometry_keyframe``. Then the loop-closure backend on the
+card: the chunk verifier against the same call on the CPU, and ``cli slam``
+twice on a short log. These tests need a CUDA device and skip
 without one; they import no jax, so that they run where only PyTorch is
 installed:
 
@@ -15,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from laser_slam_tpu_torch import cli
 from laser_slam_tpu_torch.core import scan as S
 from laser_slam_tpu_torch.core import se2
+from laser_slam_tpu_torch.graph import loop_closure, submap
 from laser_slam_tpu_torch.ops import odometry
 from laser_slam_tpu_torch.ops import preprocess as pp
 from laser_slam_tpu_torch.ops import psm
@@ -180,3 +184,82 @@ def test_chain_entry_edge_cases(cuda):
         psm_kernel.odometry_chain_fused(S.LMS511, scans, 0.05, 0.10)
     with pytest.raises(ValueError):    # CPU tensors: the plain version is the step loop
         psm_kernel.odometry_chain_fused(model, scans.to("cpu"), 0.05, 0.10)
+
+
+# Pairs of the synthetic log's first 400 scans (anchors every 10 scans): six
+# true revisits of the first doorway, a far pair and an invalid one.
+SRC = np.asarray([12, 11, 15, 13, 10, 16, 2, 5])
+DST = np.asarray([27, 28, 24, 26, 29, 23, 30, 38])
+# A verified loop's relative pose, card against CPU [m, rad]: both run the
+# same PyTorch program; the sums run in another order.
+REL_ATOL = 1e-3
+
+
+def test_verify_pairs_correlative_on_cuda_matches_cpu(cuda):
+    """One chunk of eight candidates through the whole verifier (48
+    rotation samples, 384- and 768-point clouds built from the ground-truth
+    poses) on the card and on the CPU: every pair whose scores all lie away
+    from their gates gets the same strict and tentative flags and the same
+    lane, and the accepted relative poses agree."""
+    model = S.LMS211
+    scans, _ = synthetic_scans(model, 400, torch.device("cpu"))
+    gt, _ = synthetic_log.trajectory(400)
+    poses = torch.as_tensor(se2.np_relative(gt[0], gt), dtype=torch.float32)
+    sm = submap.build_submaps(model, scans, poses, 10, 384)
+    ap = poses[::10]
+    wp, wo = submap.wide_clouds(sm, ap, wing=4, max_points=768)
+    src, dst = torch.as_tensor(SRC), torch.as_tensor(DST)
+    est = se2.relative(ap[src], ap[dst])
+    est[:, :2] += 0.6
+    valid = torch.ones(8, dtype=torch.bool)
+    valid[-1] = False
+    args = (wp[src], wo[src], sm.points[src], sm.valid[src], wp[dst], wo[dst], sm.points[dst],
+            sm.valid[dst], est, valid, torch.full((8,), 3.0))
+    kw = dict(search_xy=5.0, n_theta=48, coarse_res=0.3, n_peaks=4, chunk=0, identity_init=True)
+    want = loop_closure.verify_pairs_correlative(*args, **kw)
+    got = loop_closure.verify_pairs_correlative(*(x.to(cuda) for x in args), **kw)
+    assert got.rel.device.type == cuda.type
+    d = {k: v.numpy() for k, v in want.diag.items()}
+    # Away from a gate: no score within 5 % of one of its thresholds.
+    gates = (("goodness", (0.35, 0.6, 0.8)), ("err", (0.03, 0.04, 0.05)), ("cycle_t", (0.25, 0.3)),
+             ("cycle_r", (0.1,)), ("coarse_score", (0.2, 0.6)))
+    clear = np.ones(8, bool)
+    for k, thresholds in gates:
+        for thr in thresholds:
+            clear &= np.abs(d[k] - thr) > 0.05 * thr
+    assert clear.sum() >= 5, clear
+    for g, w in ((got.accept, want.accept), (got.tentative, want.tentative),
+                 (got.diag["lane"], want.diag["lane"])):
+        np.testing.assert_array_equal(g.cpu().numpy()[clear], w.numpy()[clear])
+    both = (want.accept | want.tentative).numpy() & (got.accept | got.tentative).cpu().numpy()
+    assert want.accept.sum() >= 2 and both.sum() >= 3
+    np.testing.assert_allclose(got.rel.cpu().numpy()[both], want.rel.numpy()[both], atol=REL_ATOL)
+    np.testing.assert_allclose(got.quality.cpu().numpy()[both], want.quality.numpy()[both],
+                               atol=REL_ATOL)
+    assert not (got.accept | got.tentative)[6:].any()
+
+
+def test_cli_slam_on_cuda_twice(cuda, tmp_path, capsys):
+    """``cli slam`` on 300 scans of the synthetic log, on ``cuda`` (the
+    default device), twice: K1's chain entry runs the front end, loops are
+    closed, and the output says whether the two runs are bit-identical (the
+    normal system is assembled with floating-point atomics)."""
+    path = str(tmp_path / "synthetic.log")
+    synthetic_log.write_carmen(path, *synthetic_log.synthetic_log(n_scans=300, n_whips=0))
+    runs = []
+    for _ in range(2):
+        before = psm_kernel.odometry_chain_fused.launches
+        run = cli.main(["slam", path, "--max-loops", "64", "--rounds", "2"])
+        torch.cuda.synchronize()
+        assert psm_kernel.odometry_chain_fused.launches == before + 1
+        assert run.result.poses.device.type == "cuda"
+        poses = run.result.poses.cpu().numpy()
+        assert poses.shape == (300, 3) and np.isfinite(poses).all()
+        assert int(run.result.n_loops) == run.diag["bank"]["used"].sum() >= 3
+        assert float(run.ate.rmse) < float(run.ate_odo.rmse)
+        assert len(run.diag["timing"]["verify"]) == 4
+        runs.append(poses)
+    diff = float(np.abs(runs[0] - runs[1]).max())
+    with capsys.disabled():
+        print(f"\ncli slam twice on cuda: bit-identical {diff == 0.0}, max |dpose| {diff:.3g}")
+    assert diff < 1e-2

@@ -158,18 +158,26 @@ def test_draw_writes_the_map(small_log, tmp_path):
 
 def test_port_imports_without_jax():
     """Every module of the port (and chip_smoke.py) imports with jax made
-    unimportable, and no port source names jax."""
+    unimportable, the CLI builds its parser (the ``slam`` subcommand reads
+    ``SlamConfig``'s defaults), and no port source names jax."""
     names = [m.name for m in pkgutil.walk_packages(
         laser_slam_tpu_torch.__path__, "laser_slam_tpu_torch.")]
+    assert {"laser_slam_tpu_torch." + n for n in (
+        "graph.submap", "graph.place_recognition", "graph.loop_closure", "graph.solve",
+        "runtime.slam", "eval.diagnostics", "interop", "cli")} <= set(names)
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['laser_slam_tpu'] = None\n"
         f"import importlib\nfor n in {names!r} + ['chip_smoke']:\n    importlib.import_module(n)\n"
+        "from laser_slam_tpu_torch import cli\n"
+        "for sub in ('slam', 'odometry', 'draw'):\n"
+        "    try:\n        cli.main([sub, '--help'])\n"
+        "    except SystemExit as e:\n        assert e.code == 0\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(names) >= 15
+    assert len(names) >= 22
     for path in [*(ROOT / "laser_slam_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
                  ROOT / "tools" / "synthetic_log.py"]:
         text = path.read_text()
