@@ -28,7 +28,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    counts, device busy and idle share); each layer of the path again,
    alone, for its share of the time;
 5. ``laser_slam_tpu_torch.cli slam`` on the same log on ``cuda`` at
-   ``SlamConfig()`` defaults, twice (first call and warm): keyframe
+   ``SlamConfig()`` defaults: keyframe
    odometry (K1's chain entry) → submaps → signature gate → wide clouds
    → eight waves of propose, verify in chunks of 32, robust solve →
    re-attachment. Held: the chain entry launched, all waves ran, a
@@ -37,7 +37,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
    truth. Then one wave under ``torch.profiler``: the device time of the
    hot spots that stay library calls (nearest-two search, score-volume
    convolution, peak suppression, sorts and dense solves);
-6. the bundled intel-lab log, when present at the repo's reference-data
+6. the online path, on the same log at ``SlamConfig()`` defaults:
+   ``SlamV1(work_mode="mapping")`` as shipped (async backend on a worker
+   thread with a CUDA stream of its own, the filter and the live map on)
+   fed all scans through ``feed_scan_main`` in real time (10 Hz)
+   with a local-map and an obstacle callback, then ``stop()`` and ``flush(final_round=True)``:
+   per-scan latency with and without a round in flight, the scheduler's
+   counters, the rounds' walls, ATE before and after. K1's two-pair
+   entry launches once a scan; every 16th scan's inputs are held against
+   the plain versions. The same session with the synchronous backend on
+   the first 1000 scans (the frontends must agree until a round applies);
+   a checkpoint at scan 1000 resumed and fed 200 more against the
+   uninterrupted session; a profiler trace of 200 scans; each layer of a
+   scan alone;
+7. localization: ``cli localize`` at 4096 particles; the likelihood
+   field, global relocalization from 10,000 samples, 200 particle-filter
+   ticks timed with CUDA events, one chunked ``update_beam``; the card's
+   tick against the same functions on the CPU with the same draws;
+8. the bundled intel-lab log, when present at the repo's reference-data
    location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
 
 The last three lines of stdout are the kernels' JSON record, the card's
@@ -87,6 +104,13 @@ P50_T, P99_T, P50_R_DEG, P99_R_DEG, MAX_KERNEL_ONLY_FAILS = 5e-3, 0.15, 0.1, 2.0
 # Every this-many keyframe steps of the step-loop route, K1 is held to the
 # plain matcher on that step's own inputs.
 STEP_SAMPLE = 16
+# The online session is fed in real time, one scan every 100 ms: the log's
+# own scan period (tools/synthetic_log.DT), as a robot's sensor feeds it. Fed
+# as fast as the frontend takes them, the scans starve the backend's worker
+# of the interpreter lock: 5-7 rounds start instead of 20 and more, and about
+# one such session in six ends with wrong loops in use and an ATE above its
+# odometry's (tools/online_rounds_probe.py shows both schedules).
+REPLAY_PERIOD = 0.1
 # K1's chain entry against the step loop on the card, whole log: flags
 # identical; poses within 1e-3 m / rad. Both routes run the kernel's one
 # arithmetic for the matches and error indices; only the pose composition
@@ -282,10 +306,9 @@ def host_s(fn):
 
 
 def slam_phase(cli, K, log_path, log, smi):
-    """Drives ``cli slam`` on ``cuda`` at ``SlamConfig()`` defaults, twice,
-    holds the result (see the module docstring), prints the ``[slam]``
-    lines and the trace of one wave. Returns K1's chain-entry launches of
-    the first run."""
+    """Drives ``cli slam`` on ``cuda`` at ``SlamConfig()`` defaults, holds
+    the result (see the module docstring), prints the ``[slam]``
+    lines and the trace of one wave. Returns K1's chain-entry launches."""
     from laser_slam_tpu_torch.eval.diagnostics import classify_loops
     from laser_slam_tpu_torch.graph import solve
     from laser_slam_tpu_torch.graph.submap import build_submaps
@@ -293,7 +316,6 @@ def slam_phase(cli, K, log_path, log, smi):
 
     cfg = slam.SlamConfig()
     waves = cfg.rounds + cfg.cov_rounds
-    runs, chain_launches = [], None
     # Every LM iteration solves the normal equations once and then reads its
     # accept flags on the host: the calls count the solver's device syncs.
     solve_normal, lm_iterations = solve._solve_normal, [0]
@@ -302,63 +324,53 @@ def slam_phase(cli, K, log_path, log, smi):
         lm_iterations[0] += 1
         return solve_normal(g, lam)
 
-    for label in ("first call", "warm"):
-        K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        lm_iterations[0] = 0
-        solve._solve_normal = counting
-        try:
-            run = cli.main(["slam", log_path, "--device", "cuda"])
-        finally:
-            solve._solve_normal = solve_normal
-        torch.cuda.synchronize()
-        launches = (K.odometry_chain_fused.launches, K.match_psm_fused.launches)
-        if chain_launches is None:
-            chain_launches = launches[0]
-        res, tm, bank = run.result, run.diag["timing"], run.diag["bank"]
-        t = log.n_scans
-        if any(x.device.type != "cuda" for x in res):
-            raise AssertionError("a tensor of the SLAM result is not on cuda")
-        poses = res.poses.cpu().numpy()
-        if poses.shape != (t, 3) or not np.isfinite(poses).all():
-            raise AssertionError(f"bad SLAM trajectory: shape {poses.shape}")
-        if launches != (1, 0):
-            raise AssertionError(f"slam launched K1's chain entry {launches[0]} times (expected "
-                                 f"once) and its batch entry {launches[1]} times")
-        if any(len(tm[k]) != waves for k in ("propose", "verify", "solve")):
-            raise AssertionError(f"not all {waves} waves ran: {tm}")
-        strict = bank["act"] & bank["strict"]
-        used = bank["used"]
-        if not (strict.sum() >= 1 and (used & strict).sum() >= 1 and int(res.n_loops) == used.sum()):
-            raise AssertionError(f"no strict loop banked and used: banked {int(bank['act'].sum())}, "
-                                 f"strict {int(strict.sum())}, used {int(used.sum())}")
-        ate_odo, ate_slam = float(run.ate_odo.rmse), float(run.ate.rmse)
-        gt_anchor = log.gt_pose[res.anchor_idx.cpu().numpy()]
-        rep = classify_loops(bank["src"], bank["dst"], bank["rel"], used, gt_anchor)
-        wrong = 1.0 - rep.n_correct / max(rep.n, 1)
-        verify_s = float(np.sum(tm["verify"]))
-        phase("slam", f"{label}: {t} scans, {gt_anchor.shape[0]} anchors, {waves} waves of "
-                      f"{cfg.max_loops} candidates in chunks of {cfg.verify_chunk}: slam_offline "
-                      f"{run.seconds:.3f}s; peak device memory "
-                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
-        phase("slam", f"{label}: stage seconds " + json.dumps({
-            k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4))
-            for k, v in tm.items()}))
-        phase("slam", f"{label}: verify {waves * cfg.max_loops / verify_s:.1f} pairs/s "
-                      f"({verify_s:.3f}s for {waves * cfg.max_loops} pairs); loops banked "
-                      f"{int(bank['act'].sum())} / strict {int(strict.sum())} / used "
-                      f"{int(used.sum())}; ATE odometry {ate_odo:.4f} m -> SLAM {ate_slam:.4f} m; "
-                      f"used loops wrong (> 0.5 m or 0.2 rad from the ground truth) "
-                      f"{rep.n - rep.n_correct} of {rep.n} = {wrong:.4f}; chi2 {float(res.chi2):.3f}; "
-                      f"LM iterations (one host sync each) {lm_iterations[0]} in {2 * waves} solves")
-        if not ate_slam < ate_odo:
-            raise AssertionError(f"SLAM ATE {ate_slam} is not below the odometry ATE {ate_odo}")
-        runs.append((poses, ate_slam, used))
-    same = np.array_equal(runs[0][0], runs[1][0])
-    phase("slam", f"two runs: trajectories bit-identical {same}, max |dpose| "
-                  f"{float(np.abs(runs[0][0] - runs[1][0]).max()):.3g}, ATE {runs[0][1]:.6f} / "
-                  f"{runs[1][1]:.6f} m, used-loop masks equal "
-                  f"{bool(np.array_equal(runs[0][2], runs[1][2]))}")
+    K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    solve._solve_normal = counting
+    try:
+        run = cli.main(["slam", log_path, "--device", "cuda"])
+    finally:
+        solve._solve_normal = solve_normal
+    torch.cuda.synchronize()
+    launches = (K.odometry_chain_fused.launches, K.match_psm_fused.launches)
+    res, tm, bank = run.result, run.diag["timing"], run.diag["bank"]
+    t = log.n_scans
+    if any(x.device.type != "cuda" for x in res):
+        raise AssertionError("a tensor of the SLAM result is not on cuda")
+    poses = res.poses.cpu().numpy()
+    if poses.shape != (t, 3) or not np.isfinite(poses).all():
+        raise AssertionError(f"bad SLAM trajectory: shape {poses.shape}")
+    if launches != (1, 0):
+        raise AssertionError(f"slam launched K1's chain entry {launches[0]} times (expected "
+                             f"once) and its batch entry {launches[1]} times")
+    if any(len(tm[k]) != waves for k in ("propose", "verify", "solve")):
+        raise AssertionError(f"not all {waves} waves ran: {tm}")
+    strict = bank["act"] & bank["strict"]
+    used = bank["used"]
+    if not (strict.sum() >= 1 and (used & strict).sum() >= 1 and int(res.n_loops) == used.sum()):
+        raise AssertionError(f"no strict loop banked and used: banked {int(bank['act'].sum())}, "
+                             f"strict {int(strict.sum())}, used {int(used.sum())}")
+    ate_odo, ate_slam = float(run.ate_odo.rmse), float(run.ate.rmse)
+    gt_anchor = log.gt_pose[res.anchor_idx.cpu().numpy()]
+    rep = classify_loops(bank["src"], bank["dst"], bank["rel"], used, gt_anchor)
+    wrong = 1.0 - rep.n_correct / max(rep.n, 1)
+    verify_s = float(np.sum(tm["verify"]))
+    phase("slam", f"{t} scans, {gt_anchor.shape[0]} anchors, {waves} waves of "
+                  f"{cfg.max_loops} candidates in chunks of {cfg.verify_chunk}: slam_offline "
+                  f"{run.seconds:.3f}s; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    phase("slam", "stage seconds " + json.dumps({
+        k: ([round(x, 4) for x in v] if isinstance(v, list) else round(v, 4))
+        for k, v in tm.items()}))
+    phase("slam", f"verify {waves * cfg.max_loops / verify_s:.1f} pairs/s "
+                  f"({verify_s:.3f}s for {waves * cfg.max_loops} pairs); loops banked "
+                  f"{int(bank['act'].sum())} / strict {int(strict.sum())} / used "
+                  f"{int(used.sum())}; ATE odometry {ate_odo:.4f} m -> SLAM {ate_slam:.4f} m; "
+                  f"used loops wrong (> 0.5 m or 0.2 rad from the ground truth) "
+                  f"{rep.n - rep.n_correct} of {rep.n} = {wrong:.4f}; chi2 {float(res.chi2):.3f}; "
+                  f"LM iterations (one host sync each) {lm_iterations[0]} in {2 * waves} solves")
+    if not ate_slam < ate_odo:
+        raise AssertionError(f"SLAM ATE {ate_slam} is not below the odometry ATE {ate_odo}")
 
     # One wave (the first: from the odometry estimate, an empty bank) under
     # the profiler, with the signature gate and the wide clouds before it.
@@ -381,7 +393,398 @@ def slam_phase(cli, K, log_path, log, smi):
         "card": smi}))
     if n_ops == 0 or host_ops.get("h1_nearest_two", (0, 0.0))[0] == 0:
         raise AssertionError("the traced wave ran no device operation of the verifier")
-    return chain_launches
+    return launches[0]
+
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the host clock over ``reps`` runs
+    after a warm-up, the device synchronised at both ends: what a caller
+    waits for a call that is bound by the host's issue rate."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def percentiles(x) -> dict:
+    x = np.asarray(x, np.float64) * 1e3
+    if x.size == 0:
+        return {"n": 0}
+    return {"n": int(x.size), "p50_ms": float(np.percentile(x, 50)),
+            "p99_ms": float(np.percentile(x, 99)), "max_ms": float(x.max())}
+
+
+def drive_facade(log, n_scans, async_backend, K, odometry, record=None, period=0.0):
+    """Feeds the log's first ``n_scans`` scans through ``SlamV1`` in its
+    mapping mode on ``cuda`` (the default device) with a local-map, an
+    obstacle and a frontend-pose callback, one scan every ``period``
+    seconds (0: as fast as they are taken; the waiting is not part of a
+    call's seconds). Returns the facade, each call's
+    seconds, whether a backend round was in flight when the call began,
+    every round's wall, the frontend's poses as they came, the callbacks'
+    counts and K1's batch-entry launches. With a list ``record``, every
+    ``STEP_SAMPLE``-th K1 call's inputs are kept in it."""
+    from laser_slam_tpu_torch.runtime import facade, online
+
+    counts = {"local_map": 0, "obstacle": 0, "deep_fallback": 0}
+    front = []
+
+    def on_local_map(win):
+        counts["local_map"] += 1
+        counts["local_map_shape"] = win.shape
+
+    def on_obstacle(speed, zone):
+        counts["obstacle"] += 1
+
+    s = facade.SlamV1(log.model, callbacks=facade.SlamCallbacks(
+        on_local_map=on_local_map, on_obstacle=on_obstacle,
+        on_slam_pose=lambda p: front.append(np.array(p))), async_backend=async_backend)
+    s.start()
+    slam = s._slam
+    if slam.device.type != "cuda":
+        raise AssertionError(f"SlamV1 runs on {slam.device} by default")
+    walls, plain_round = [], slam._backend.round
+
+    def timed_round(*snap):
+        out = plain_round(*snap)
+        if out is not None:
+            walls.append(slam._backend._last_round_wall)
+        return out
+
+    slam._backend.round = timed_round
+    fused, calls = K.match_psm_fused, [0]
+
+    def recording(model, ref, cur, init_pose=None, error_ref=None):
+        calls[0] += 1
+        if record is not None and calls[0] % STEP_SAMPLE == 0:
+            record.append((ref, cur, init_pose, error_ref))
+        return fused(model, ref, cur, init_pose, error_ref)
+
+    step_deep = online._step_deep
+
+    def counting_deep(*args):
+        counts["deep_fallback"] += 1
+        return step_deep(*args)
+
+    odometry.match_psm_fused, online._step_deep = recording, counting_deep
+    K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+    seconds, in_flight = [], []
+    try:
+        for r in log.ranges[:n_scans]:
+            in_flight.append(slam._bg_thread is not None and slam._bg_thread.is_alive())
+            t0 = time.perf_counter()
+            s.feed_scan_main(r)
+            seconds.append(time.perf_counter() - t0)
+            time.sleep(max(0.0, period - seconds[-1]))
+    finally:
+        odometry.match_psm_fused, online._step_deep = fused, step_deep
+    launches = (K.match_psm_fused.launches, K.odometry_chain_fused.launches)
+    if launches != (n_scans - 1, 0) or calls[0] != n_scans - 1:
+        raise AssertionError(f"{n_scans} scans launched K1's batch entry {launches[0]} times "
+                             f"({calls[0]} calls) and its chain entry {launches[1]} times")
+    if counts["local_map"] != n_scans or counts["obstacle"] != n_scans:
+        raise AssertionError(f"callbacks fired {counts} times for {n_scans} scans")
+    return s, np.asarray(seconds), np.asarray(in_flight), walls, np.stack(front), counts, launches[0]
+
+
+def online_phase(K, log, smi, stats, psm, odometry, tmp_dir):
+    """The online path (see the module docstring, phase 6). Returns K1's
+    batch-entry launches of the shipped (async) session."""
+    from laser_slam_tpu_torch.eval import metrics
+    from laser_slam_tpu_torch.eval.diagnostics import classify_loops
+    from laser_slam_tpu_torch.runtime.online import OnlineSlam
+
+    model, t = log.model, log.n_scans
+    dev = torch.device("cuda")
+    gt = torch.as_tensor(log.gt_pose, dtype=torch.float32, device=dev)
+
+    def ate_of(poses):
+        p = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device=dev)
+        return float(metrics.ate(p, gt[: p.shape[0]]).rmse)
+
+    # -- the session as shipped: async backend, the filter, the live map --
+    torch.cuda.reset_peak_memory_stats()
+    inputs = []
+    t0 = time.perf_counter()
+    s, sec, busy, walls, front_async, counts, launches = drive_facade(
+        log, t, True, K, odometry, record=inputs, period=REPLAY_PERIOD)
+    feed_s = time.perf_counter() - t0
+    slam = s._slam
+    t0 = time.perf_counter()
+    s.stop()
+    stop_s = time.perf_counter() - t0
+    ate_drained = ate_of(slam.trajectory)
+    stats_before_final = dict(slam.async_stats)
+    t0 = time.perf_counter()
+    slam.flush(final_round=True)
+    final_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if s.feed_scan_main(log.ranges[0]) is not None:
+        raise AssertionError("the stopped facade still takes scans")
+    bank = slam._backend._bank
+    strict = int((bank["act"] & bank["strict"]).sum())
+    ate_odo, ate_flushed = ate_of(np.stack(slam._odo_chain)), ate_of(slam.trajectory)
+    gt_anchor = log.gt_pose[np.arange(len(slam._backend._group_pts)) * slam.cfg.anchor_stride]
+    rep = classify_loops(bank["src"], bank["dst"], bank["rel"], bank["used"], gt_anchor)
+    st = slam.async_stats
+    phase("online", f"SlamV1 mapping, async backend, {t} scans, {len(slam._scans)} anchors, one "
+                    f"scan every {REPLAY_PERIOD * 1e3:.0f} ms: fed in {feed_s:.2f}s, of it "
+                    f"{float(sec.sum()):.2f}s inside feed_scan_main; stop() drained in {stop_s:.2f}s, "
+                    f"final round {final_s:.2f}s; K1 batch-entry launches {launches} (one a scan); "
+                    f"callbacks {counts}; peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    phase("online", "per-scan latency of feed_scan_main " + json.dumps({
+        "all": percentiles(sec[1:]), "no_round_in_flight": percentiles(sec[1:][~busy[1:]]),
+        "round_in_flight": percentiles(sec[1:][busy[1:]]), "first_scan_ms": float(sec[0] * 1e3),
+        "card": smi}))
+    phase("online", f"async_stats {json.dumps(st)} (before the final round "
+                    f"{json.dumps(stats_before_final)}); round walls s "
+                    f"{[round(w, 3) for w in walls]}; loops banked {int(bank['act'].sum())} / "
+                    f"strict {strict} / used by the last solve {slam.n_loops}, of them wrong (> 0.5 m or "
+                    f"0.2 rad from the ground truth) {rep.n - rep.n_correct}; weak steps "
+                    f"{sum(slam._weak)}, fractures {sum(slam._fracture)}; ATE odometry chain "
+                    f"{ate_odo:.4f} m -> drained {ate_drained:.4f} m -> flushed {ate_flushed:.4f} m")
+    if not (st["started"] >= 2 and st["applied"] >= 1
+            and st["requested"] - st["coalesced"] <= st["started"] <= st["requested"]
+            and st["overlap_scans_max"] >= 1):
+        raise AssertionError(f"the async scheduler's counters are off: {st}")
+    if slam._bg_result is not None or slam._pending_round or slam._bg_thread.is_alive():
+        raise AssertionError("a round is left in flight or pending after flush")
+    if strict < 1 or not np.isfinite(slam.trajectory).all() or slam.trajectory.shape != (t, 3):
+        raise AssertionError(f"online session: {strict} strict loops, trajectory "
+                             f"{slam.trajectory.shape}")
+    if not ate_flushed < ate_odo:
+        raise AssertionError(f"flushed ATE {ate_flushed} is not below the odometry ATE {ate_odo}")
+    grid = s.global_map(slam.map_resolution)
+    if grid.log_odds.device.type != "cuda" or int((grid.log_odds > 0).sum()) < 1000:
+        raise AssertionError("the live map is empty or not on cuda")
+
+    # -- K1 on this path: every STEP_SAMPLE-th scan's own two-pair inputs --
+    sample = [c for c in inputs if bool(c[2][0].abs().sum() > 0)]
+    if len(sample) < (t - 1) // STEP_SAMPLE // 2:
+        raise AssertionError(f"only {len(sample)} sampled scans have a nonzero prior")
+    got = [K.match_psm_fused(model, *c) for c in sample]
+    label = f"{model.name} {len(sample)} online scans x2 pairs, nonzero prior, plain on cuda"
+    stats.append(parity(cat_results([g[0] for g in got], psm),
+                        cat_results([psm.match_psm(model, *c[:3]) for c in sample], psm), label))
+    stats[-1]["index_rel_err"] = index_parity(
+        [torch.cat(x) for x in zip(*(g[1] for g in got))],
+        [torch.cat(x) for x in zip(*(psm.error_index(model, c[3], c[1], g[0].pose)
+                                     for c, g in zip(sample, got)))], label)
+
+    # -- the synchronous backend on the first 1000 scans --------------------
+    n_sync = min(1000, t)
+    t0 = time.perf_counter()
+    s2, sec2, _, walls2, front_sync, _, _ = drive_facade(log, n_sync, False, K, odometry)
+    sync_s = time.perf_counter() - t0
+    sync = s2._slam
+    quiet = sec2[1:][sec2[1:] < 0.25]
+    phase("online", f"sync backend, {n_sync} scans in {sync_s:.2f}s: {len(walls2)} rounds inside "
+                    f"feed_scan, walls s {[round(w, 3) for w in walls2]}; scans without a round "
+                    + json.dumps(percentiles(quiet)) + f"; ATE odometry chain "
+                    f"{ate_of(np.stack(sync._odo_chain)):.4f} m -> {ate_of(sync.trajectory):.4f} m")
+    # The first round is asked for when the 10th anchor arrives (scan 90):
+    # until then no correction has reached either frontend, and the two
+    # run the same launches on the same inputs.
+    first_round = (sync.optimize_every - 1) * sync.cfg.anchor_stride
+    front_err = float(np.abs(front_async[: first_round - 1] - front_sync[: first_round - 1]).max())
+    phase("online", f"async vs sync frontend poses before the first round (scans 1..{first_round - 1}"
+                    f"): max |dpose| {front_err:.3g}")
+    if not front_err <= 1e-6:
+        raise AssertionError(f"the two frontends differ by {front_err} before any round applied")
+
+    # -- checkpoint: save at scan 1000, resume, 200 more on both ------------
+    # A checkpoint holds the per-scan records and the frontend's carry; the
+    # resumed session starts with an empty loop bank, as the original's
+    # does. So both sessions go on with the backend idle, and what is held
+    # is the frontend: the same poses, to 1e-5.
+    path = os.path.join(tmp_dir, "session.npz")
+    sync.save(path)
+    idle = 10 ** 9
+    resumed = OnlineSlam.resume(model, path, use_fusion=True, optimize_every=idle)
+    sync.optimize_every = idle
+    more = log.ranges[n_sync:n_sync + 200]
+    for r in more:
+        sync.feed_scan(r)
+        resumed.feed_scan(r)
+    ck_err = float(np.abs(sync.trajectory - resumed.trajectory).max())
+    phase("checkpoint", f"saved at scan {n_sync} ({os.path.getsize(path) / 2**20:.2f} MiB), "
+                        f"resumed on {resumed.device}, {len(more)} more scans: max |dpose| against "
+                        f"the uninterrupted session {ck_err:.3g} over {len(resumed._poses)} scans")
+    if resumed.device.type != "cuda" or len(resumed._poses) != n_sync + len(more) \
+            or not ck_err <= 1e-5:
+        raise AssertionError(f"the resumed session differs by {ck_err}")
+
+    # -- the device's view of a scan: 200 calls with no round in flight ------
+    n_tr = 200
+    rest = log.ranges[n_sync + 200:n_sync + 200 + n_tr]
+
+    def feed_rest():
+        for r in rest:
+            s2.feed_scan_main(r)
+
+    wall, n_ops, busy_s, by_name = trace(feed_rest)
+    k1_n, k1_s = by_name.get("psm_match_kernel", (0, 0.0))
+    phase("trace", f"online, {n_tr} feed_scan_main calls, no round in flight: " + json.dumps({
+        "traced_wall_s": wall, "traced_ms_per_scan": wall / n_tr * 1e3,
+        "device_ops_per_scan": n_ops / n_tr, "device_busy_s": busy_s,
+        "device_busy_share_of_traced_wall": busy_s / wall,
+        "k1_launches": k1_n, "k1_device_ms_per_scan": k1_s / max(k1_n, 1) * 1e3, "card": smi}))
+    if k1_n != n_tr or "psm_chain_kernel" in by_name:
+        raise AssertionError(f"{n_tr} scans show {k1_n} psm_match_kernel launches in the trace")
+
+    # -- each layer of a scan, alone (host clock, synchronised) -------------
+    from laser_slam_tpu_torch.fusion import ukf
+    from laser_slam_tpu_torch.ops import preprocess as pp
+
+    r0 = np.asarray(log.ranges[n_sync], np.float32)
+    scan = pp.preprocess(torch.as_tensor(r0, device=dev), model)
+    carry = sync._carry
+    pose = sync._poses[-1]
+    inp = ukf.FusionInputs(torch.zeros(3, device=dev), sync._true, torch.zeros(3, device=dev),
+                           sync._true, *sync._no_beacon, slam_t=torch.ones((), device=dev))
+    layers = {
+        "upload_and_preprocess_ms": host_ms(
+            lambda: pp.preprocess(torch.as_tensor(r0).to(dev), model), 100),
+        "step_k1_and_selects_ms": host_ms(lambda: odometry._step_flagged(model, carry, scan), 100),
+        "step_fetch_ms": host_ms(lambda: carry.last_gpose.cpu(), 100),
+        "map_add_ms": host_ms(lambda: sync._imap.add(scan, pose), 50),
+        "fusion_step_ms": host_ms(lambda: ukf.fusion_step(sync._fusion, inp), 100),
+        "fused_pose_fetch_ms": host_ms(lambda: sync.pose, 100),
+        "local_map_ms": host_ms(lambda: torch.sigmoid(sync.local_map(pose, 50)[0]).cpu(), 100),
+        "obstacle_check_ms": host_ms(lambda: s2._obstacle_check(r0), 100),
+        "deep_fallback_ms": host_ms(
+            lambda: odometry._step_deep(model, carry, scan, torch.zeros(3, device=dev)), 10),
+    }
+    n_hist = len(sync._imap._scans)
+    grids = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sync._imap.rebase(np.stack(sync._poses)[:n_hist])
+        torch.cuda.synchronize()
+        layers["map_rebase_s"], layers["map_rebase_scans"] = time.perf_counter() - t0, n_hist
+        grids.append(sync._imap.grid.log_odds)
+    # index_add_ sums with float atomics: the same scans at the same poses
+    # twice give the same grid only up to the order of the sums.
+    layers["map_twice_max_abs_diff"] = float((grids[0] - grids[1]).abs().max())
+    layers["map_twice_cells_differing"] = int((grids[0] != grids[1]).sum())
+    layers["card"] = smi
+    phase("layers", "online scan " + json.dumps(layers))
+    return launches
+
+
+def localize_phase(cli, log_path, log, smi):
+    """Localization on the card (see the module docstring, phase 7)."""
+    from laser_slam_tpu_torch.core import se2
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+    from laser_slam_tpu_torch.localization import raycast
+    from laser_slam_tpu_torch.mapping import occupancy as occ
+    from laser_slam_tpu_torch.ops import preprocess as pp
+
+    dev = torch.device("cuda")
+    n_particles, ticks = 4096, 200
+    run = cli.main(["localize", log_path, "--particles", str(n_particles), "--steps", str(ticks)])
+    torch.cuda.synchronize()
+    mean, p90 = float(run.errors.mean()), float(np.percentile(run.errors, 90))
+    if run.state.poses.device.type != "cuda" or run.errors.shape != (ticks,):
+        raise AssertionError("cli localize did not run 200 ticks on cuda")
+    if not (np.isfinite(run.errors).all() and mean < 0.25 and p90 < 0.5):
+        raise AssertionError(f"cli localize lost the robot: mean {mean} m, p90 {p90} m")
+    model, grid = log.model, run.grid
+    spec = grid.spec
+    phase("localize", f"cli localize, {n_particles} particles, {ticks} ticks on a "
+                      f"{spec.width}x{spec.height} grid at {spec.resolution} m: pos err mean "
+                      f"{mean:.4f} m p90 {p90:.4f} m; the ticks took {run.seconds:.3f}s")
+
+    scans = pp.preprocess(torch.as_tensor(log.ranges, device=dev), model)
+    gt = torch.as_tensor(log.gt_pose, dtype=torch.float32, device=dev)
+    split = log.n_scans // 2
+    field_ms = cuda_ms(lambda: raycast.likelihood_field(grid), 3)
+    field = raycast.likelihood_field(grid)
+    n_iter = int(3.0 * 0.2 / spec.resolution) + 1
+
+    def valid_at(i):
+        return ~scans.bad[i] & (scans.ranges[i] < model.max_range)
+
+    # Global relocalization from 10,000 uniform samples, as the facade's
+    # localization mode starts: the kept samples are ranked, in free space.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    reloc, reloc_s = host_s(lambda: pf.global_relocalize(
+        gen, grid, field, model, scans.ranges[split], valid_at(split), n_samples=10_000))
+    best = reloc.poses[0].cpu().numpy()
+    cells = spec.world_to_cell(reloc.poses[:, :2])
+    if reloc.poses.shape != (1024, 3) or not bool((reloc.log_w[:-1] >= reloc.log_w[1:]).all()) \
+            or not bool(spec.contains(cells).all()):
+        raise AssertionError("global_relocalize: bad cloud")
+    phase("localize", f"likelihood_field ({n_iter} min-plus passes over {spec.width * spec.height} "
+                      f"cells) {field_ms:.3f} ms; global_relocalize 10000 samples -> 1024 in "
+                      f"{reloc_s * 1e3:.2f} ms, best sample {[round(float(v), 2) for v in best]} for truth "
+                      f"{[round(float(v), 2) for v in log.gt_pose[split]]}; {smi}")
+
+    # 200 ticks at 4096 particles with distinct scans, by CUDA events.
+    state0 = pf.init_gaussian(gen, gt[split], n_particles)
+    rels = se2.relative(gt[split:split + ticks], gt[split + 1:split + ticks + 1])
+    valids = torch.stack([valid_at(split + 1 + k) for k in range(ticks)])
+
+    def run_ticks():
+        st = state0
+        for k in range(ticks):
+            st = pf.predict(st, rels[k], gen, sigma_xy=0.05, sigma_theta=0.03)
+            st = pf.update_field(st, field, grid, model, scans.ranges[split + 1 + k], valids[k])
+            st = pf.maybe_resample(st, gen)
+            est = pf.estimate(st)
+        return st, est
+
+    tick_ms = cuda_ms(run_ticks, 2) / ticks
+    _, n_ops, busy_s, _ = trace(run_ticks)
+    # One beam-model update at 4096 particles, in chunks reckoned from the bytes.
+    n_samples = int(model.max_range / spec.resolution)
+    chunk = pf._chunk(n_particles, model.n_beams * n_samples * raycast.SIMULATE_BYTES_PER_SAMPLE, None)
+    torch.cuda.reset_peak_memory_stats()
+    beam, beam_s = host_s(lambda: pf.update_beam(
+        state0, grid, model, scans.ranges[split], valid_at(split)))
+    if not bool(torch.isfinite(beam.log_w).all()):
+        raise AssertionError("update_beam gave non-finite weights")
+    phase("localize", json.dumps({
+        "pf_tick_ms": tick_ms, "particle_updates_per_s": n_particles / tick_ms * 1e3,
+        "device_ops_per_tick": n_ops / ticks, "device_busy_ms_per_tick": busy_s / ticks * 1e3,
+        "likelihood_field_ms": field_ms, "update_beam_s": beam_s, "update_beam_chunk": chunk,
+        "update_beam_chunks": -(-n_particles // chunk), "samples_per_beam": n_samples,
+        "update_beam_peak_GiB": torch.cuda.max_memory_allocated() / 2**30, "card": smi}))
+
+    # The card against the same functions on the CPU with the same draws.
+    noise_xy = torch.randn(n_particles, 2, generator=gen, device=dev)
+    noise_t = torch.randn(n_particles, generator=gen, device=dev)
+    u = float(torch.rand((), generator=gen, device=dev))
+    obs, ok = scans.ranges[split + 1], valid_at(split + 1)
+
+    def tick(st, to):
+        st = pf.predict_with_noise(st, rels[0].to(to), noise_xy.to(to), noise_t.to(to), 0.05, 0.03)
+        g = occ.OccupancyGrid(grid.log_odds.to(to), spec)
+        st = pf.update_field(st, raycast.likelihood_field(g), g, model, obs.to(to), ok.to(to))
+        return st, pf.maybe_resample_at(st, u)
+
+    card, card_rs = tick(state0, dev)
+    host, host_rs = tick(pf.ParticleState(*(x.cpu() for x in state0)), "cpu")
+    d = (card.log_w.cpu() - host.log_w).abs().numpy()
+    # The same estimate from the same cloud on either device; the clouds
+    # themselves differ where an endpoint on a cell edge reads the
+    # neighbouring cell (last bits of cos/sin), and a resampled index at a
+    # boundary of the cumulative sum.
+    est_err = float((pf.estimate(card).cpu() - pf.estimate(
+        pf.ParticleState(card.poses.cpu(), card.log_w.cpu()))).abs().max())
+    moved = float((card_rs.poses.cpu() != host_rs.poses).any(dim=1).float().mean())
+    phase("localize", f"card vs cpu, one tick with the same draws: log-weights max |d| "
+                      f"{d.max():.3g}, share above 1e-4 {float((d > 1e-4).mean()):.4f}; estimate "
+                      f"of the card's cloud on either device |d| {est_err:.3g}; resampled rows "
+                      f"that differ {moved:.4f}")
+    if not ((d > 1e-4).mean() <= 0.05 and d.max() < 0.1 and est_err <= 1e-3 and moved <= 0.05):
+        raise AssertionError("the card's particle-filter tick disagrees with the CPU's")
 
 
 def main() -> None:
@@ -635,6 +1038,12 @@ def main() -> None:
         # -- 5. the SLAM main path -------------------------------------------
         slam_chain_launches = slam_phase(cli, K, log_path, log, smi)
 
+        # -- 6. the online path ------------------------------------------------
+        online_launches = online_phase(K, log, smi, stats, psm, odometry, tmp.name)
+
+        # -- 7. localization -----------------------------------------------------
+        localize_phase(cli, log_path, log, smi)
+
     # Small input against the plain version on the CPU: the first 300
     # pairs. Float transcendentals differ between the two devices in the
     # last bit, which can flip which pair covers a bin at a segment end in
@@ -645,7 +1054,7 @@ def main() -> None:
                         psm.match_psm(lms211, a.to("cpu"), b.to("cpu")),
                         f"{lms211.name} x300, plain on cpu")
 
-    # -- 6. the bundled intel-lab log, when present -------------------------
+    # -- 8. the bundled intel-lab log, when present -------------------------
     if INTEL_LOG.exists():
         run = cli.main(["odometry", str(INTEL_LOG), "--device", "cuda"])
         ate = float(run.ate.rmse)
@@ -672,7 +1081,8 @@ def main() -> None:
         {
             "name": "psm_match_kernel (K1, batch entry: one block per pair)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": batch_launches, "launches_cli_slam": 0,
+            "launches": batch_launches + online_launches, "launches_pairwise": batch_launches,
+            "launches_online": online_launches, "launches_cli_slam": 0,
             "max_abs_err": max(s["max_abs_err"] for s in stats),
             "ms": batch_ms, "plain_ms": batch_plain_ms,
             "bound_ms": batch_bound, "bound_by": batch_bound_by,

@@ -10,6 +10,11 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
   odometry and of the optimized trajectory, optionally write the
   trajectory (``--out``) and an occupancy-map PNG (``--map``).
 - ``draw``: render an occupancy-map PNG from a log and a trajectory.
+- ``localize``: build a map from the first half of a log (at its ground
+  truth) and track the second half with the particle filter: position
+  error against the ground truth.
+- ``eval``: ATE / RPE of a trajectory file against a log's ground truth,
+  as one JSON line.
 
 ``--device`` picks where the tensors live: ``cuda`` by default, and the
 command fails when there is no CUDA device; ``--device cpu`` asks for the
@@ -19,6 +24,7 @@ CPU.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import NamedTuple
 
@@ -169,6 +175,83 @@ def cmd_draw(args):
                    args.resolution)
 
 
+class LocalizeRun(NamedTuple):
+    """What ``localize`` computed, for callers of :func:`main`."""
+
+    errors: np.ndarray   # [steps] position error against the ground truth, m
+    state: object        # localization.particle_filter.ParticleState, the last
+    grid: object         # mapping.occupancy.OccupancyGrid of the first half
+    seconds: float       # wall time of the tracked steps
+
+
+def cmd_localize(args) -> LocalizeRun:
+    from .core import se2
+    from .localization import particle_filter as pf
+    from .localization.raycast import likelihood_field
+    from .mapping.occupancy import empty_grid, integrate_scans, spec_for_trajectory
+    from .ops.preprocess import preprocess
+
+    dev = _device(args.device)
+    log = _load(args.log, args.scans)
+    model = log.model
+    scans = preprocess(torch.as_tensor(log.ranges, device=dev), model)
+    gt = torch.as_tensor(log.gt_pose[: log.n_scans], dtype=torch.float32, device=dev)
+
+    # Build the map from the first part of the log, localize the rest.
+    split = log.n_scans // 2
+    spec = spec_for_trajectory(log.gt_pose[: log.n_scans], model.max_range, args.resolution)
+    grid = integrate_scans(
+        empty_grid(spec, device=dev), model, type(scans)(*(x[:split] for x in scans)), gt[:split])
+    field = likelihood_field(grid)
+
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(0)
+    state = pf.init_gaussian(generator, gt[split], args.particles)
+
+    # A tick is predict + weight + resample + estimate, all on the device;
+    # the estimates are read back once, after the last tick.
+    ests = []
+    t0 = time.time()
+    ticks = range(split + 1, min(split + 1 + args.steps, log.n_scans))
+    for t in ticks:
+        rel = se2.relative(gt[t - 1], gt[t])  # odometry stand-in
+        valid = ~scans.bad[t] & (scans.ranges[t] < model.max_range)
+        state = pf.predict(state, rel, generator, sigma_xy=0.05, sigma_theta=0.03)
+        state = pf.update_field(state, field, grid, model, scans.ranges[t], valid)
+        state = pf.maybe_resample(state, generator)
+        ests.append(pf.estimate(state))
+    if not ests:
+        raise SystemExit("localize: the log's second half has no scan to track")
+    est = torch.stack(ests)
+    errs = torch.sqrt(torch.sum((est[:, :2] - gt[ticks.start:ticks.stop, :2]) ** 2, dim=-1))
+    errs = errs.cpu().numpy()
+    dt = time.time() - t0
+    print(
+        f"tracked {len(errs)} steps with {args.particles} particles: "
+        f"pos err mean={errs.mean():.3f}m p90={np.percentile(errs, 90):.3f}m"
+    )
+    return LocalizeRun(errs, state, grid, dt)
+
+
+def cmd_eval(args) -> dict:
+    from .eval.metrics import ate, rpe
+
+    dev = _device(args.device)
+    est = torch.as_tensor(np.loadtxt(args.traj, dtype=np.float32), device=dev)
+    log = _load(args.log, None)
+    gt = torch.as_tensor(log.gt_pose[: est.shape[0]], dtype=torch.float32, device=dev)
+    a = ate(est, gt)
+    tr, rot = rpe(est, gt)
+    out = {
+        "ate_rmse": round(float(a.rmse), 4),
+        "ate_mean": round(float(a.mean), 4),
+        "rpe_trans_mean": round(float(tr.mean()), 4),
+        "rpe_rot_mean_deg": round(float(torch.rad2deg(rot.mean())), 4),
+    }
+    print(json.dumps(out))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="laser_slam_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -208,6 +291,21 @@ def main(argv=None):
     sp.add_argument("--out", default="map.png")
     sp.add_argument("--resolution", type=float, default=0.05)
     sp.set_defaults(fn=cmd_draw)
+
+    sp = sub.add_parser("localize", help="particle-filter localization demo")
+    common(sp)
+    sp.add_argument("--particles", type=int, default=2048)
+    sp.add_argument("--steps", type=int, default=200)
+    sp.add_argument("--resolution", type=float, default=0.05)
+    sp.set_defaults(fn=cmd_localize)
+
+    sp = sub.add_parser("eval", help="ATE/RPE of a trajectory vs log ground truth")
+    sp.add_argument("log")
+    sp.add_argument("traj")
+    sp.add_argument("--device", default=None,
+                    help="torch device (default: cuda; fails without a CUDA "
+                         "device unless cpu is asked for)")
+    sp.set_defaults(fn=cmd_eval)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -75,6 +75,11 @@ class Scan(NamedTuple):
         return Scan(*(x.to(device) for x in self))
 
 
+def stack_scans(scans: list[Scan]) -> Scan:
+    """``T`` scans ``[N]`` as one batch ``[T, N]``."""
+    return Scan(*(torch.stack(x) for x in zip(*scans)))
+
+
 def raw_scan(ranges: Tensor, model: LaserModel) -> Scan:
     """An unpreprocessed :class:`Scan` from raw ranges [m]; readings
     below ``min_range`` are pushed beyond ``max_range`` so the far-point

@@ -2,8 +2,12 @@
 
 The system has no weights; its state is the laser model, scans, poses,
 grids, submaps, loop candidates and verified loops, the pose graph, the
-loop bank and the SLAM configuration. These helpers move them through
-plain python / numpy, so neither package imports the other. Index
+loop bank, the SLAM configuration, the filter and particle states, the
+odometry carry and the incremental backend's persistent state. These
+helpers move them through plain python / numpy, so neither package
+imports the other. A whole online session crosses through its checkpoint
+file: ``OnlineSlam.save`` of either package writes the keys that
+``OnlineSlam.resume`` of the other reads. Index
 arrays become ``int64`` tensors (what ``gather`` and indexing take) and
 go back as ``int32``, the type the JAX package keeps them in.
 """
@@ -110,3 +114,59 @@ def config_from_fields(d: dict) -> SlamConfig:
 
 def config_to_fields(cfg: SlamConfig) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def named_state_from_numpy(cls, fields: dict, device=None):
+    """A port ``UkfState``, ``ParticleState`` or odometry carry
+    (``ops.odometry._OdoCarry``) from the field dict of its JAX namesake
+    (``x._asdict()``; a carry's two scans as ``(ranges, bad, seg)``
+    tuples or ``Scan``s of arrays)."""
+    from .fusion.ukf import UkfState
+    from .localization.particle_filter import ParticleState
+    from .ops.odometry import _OdoCarry
+
+    if cls not in (UkfState, ParticleState, _OdoCarry):
+        raise TypeError(f"named_state_from_numpy: {cls!r} is not a named state of the port")
+
+    def leaf(v):
+        if isinstance(v, tuple):                       # a scan
+            return scan_from_numpy(*v, device=device)
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    return cls(**{k: leaf(v) for k, v in fields.items()})
+
+
+def named_state_to_numpy(state) -> dict:
+    """The field dict of a ``UkfState``, ``ParticleState`` or odometry
+    carry as numpy arrays (a carry's scans as ``(ranges, bad, seg)``)."""
+    return {k: scan_to_numpy(v) if isinstance(v, Scan) else v.detach().cpu().numpy()
+            for k, v in state._asdict().items()}
+
+
+def _backend_fields(group_pts, group_ok, bank, tried, n_loops) -> dict:
+    """A copy of an incremental backend's persistent state, typed."""
+    return {
+        "group_pts": [np.array(x, np.float32) for x in group_pts],
+        "group_ok": [np.array(x, bool) for x in group_ok],
+        "bank": None if bank is None else bank_from_numpy(bank),
+        "tried": None if tried is None else np.array(tried, bool),
+        "n_loops": int(n_loops),
+    }
+
+
+def backend_state_to_numpy(backend) -> dict:
+    """The persistent state of an ``IncrementalBackend`` of either
+    package (their attributes have the same names): per-anchor group
+    clouds and masks, the loop bank, the tried-pair matrix, the loop
+    count. All of it lives on the host in numpy already; this copies it."""
+    return _backend_fields(backend._group_pts, backend._group_ok, backend._bank,
+                           backend._tried, backend.n_loops)
+
+
+def backend_state_from_numpy(backend, state: dict) -> None:
+    """Loads what :func:`backend_state_to_numpy` returned into an
+    ``IncrementalBackend`` of either package, so that its next round
+    continues the other's session."""
+    fresh = _backend_fields(**state)
+    backend._group_pts, backend._group_ok = fresh["group_pts"], fresh["group_ok"]
+    backend._bank, backend._tried, backend.n_loops = fresh["bank"], fresh["tried"], fresh["n_loops"]

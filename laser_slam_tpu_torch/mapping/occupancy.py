@@ -23,6 +23,7 @@ LO_OCC = 0.85     # log odds added at the beam endpoint
 LO_FREE = -0.4    # log odds added along the free-space ray
 LO_MIN, LO_MAX = -10.0, 10.0
 SUBMAP_RESOLUTION = 0.05
+LOCALIZATION_RESOLUTION = 0.02
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +49,15 @@ class GridSpec2D:
             dim=-1,
         )
 
+    def cell_centers_world(self, cells: Tensor) -> Tensor:
+        return torch.stack(
+            [
+                (cells[..., 0] + 0.5) * self.resolution + self.origin_x,
+                (cells[..., 1] + 0.5) * self.resolution + self.origin_y,
+            ],
+            dim=-1,
+        )
+
     def contains(self, cells: Tensor) -> Tensor:
         return (
             (cells[..., 0] >= 0)
@@ -63,6 +73,18 @@ class OccupancyGrid:
 
     log_odds: Tensor
     spec: GridSpec2D
+
+    @property
+    def probability(self) -> Tensor:
+        return torch.sigmoid(self.log_odds)
+
+    @property
+    def occupied(self) -> Tensor:
+        return self.log_odds > 0.0
+
+    @property
+    def known(self) -> Tensor:
+        return torch.abs(self.log_odds) > 1e-6
 
 
 def empty_grid(spec: GridSpec2D, dtype=torch.float32, device=None) -> OccupancyGrid:
@@ -134,3 +156,22 @@ def integrate_scans(
 
     lo = torch.clamp(lo_flat, LO_MIN, LO_MAX).reshape(spec.height, spec.width)
     return OccupancyGrid(log_odds=lo, spec=spec)
+
+
+def occupied_points(grid: OccupancyGrid, max_points: int) -> tuple[Tensor, Tensor]:
+    """Up to ``max_points`` occupied cell centers as world points
+    ``([P, 2], [P] valid-mask)``, highest log-odds first.
+
+    Log-odds are clamped at ``LO_MAX``, so the cells of every
+    well-observed wall tie; among equals the lower flat index comes
+    first (a stable descending sort), which makes the cut at
+    ``max_points`` deterministic."""
+    flat = grid.log_odds.reshape(-1)
+    score = torch.where(flat > 0.0, flat, -torch.inf)
+    vals, idx = torch.sort(score, descending=True, stable=True)
+    vals, idx = vals[:max_points], idx[:max_points]
+    valid = torch.isfinite(vals)
+    iy = idx // grid.spec.width
+    ix = idx % grid.spec.width
+    pts = grid.spec.cell_centers_world(torch.stack([ix, iy], dim=-1)).to(flat.dtype)
+    return pts, valid

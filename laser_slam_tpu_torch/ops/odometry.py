@@ -66,13 +66,41 @@ def _match_and_score(model: LaserModel, ref: Scan, cur: Scan, init: Tensor, last
     return res, error_index(model, last, cur, res.pose)
 
 
-def _step(model: LaserModel, carry: _OdoCarry, cur: Scan):
-    """One pass-1 odometry step with no host sync.
+def _settle(carry: _OdoCarry, cur: Scan, need_switch: Tensor, rel: Tensor, all_failed: Tensor):
+    """Settles a step from its chosen relative pose ``rel`` (against the
+    keyframe, or against the previous scan when the keyframe switched):
+    the new carry, the scan's global pose and the ``switched`` and
+    ``discarded`` flags. A discarded frame leaves the carry as it was."""
+    discarded = need_switch & all_failed
+    keep = ~discarded
+    base = torch.where(need_switch, carry.last_gpose, carry.ref_gpose)
+    gpose = se2.compose(base, rel)
+    new_carry = _OdoCarry(
+        ref=_where_scan(need_switch & keep, carry.last, carry.ref),
+        last=_where_scan(keep, cur, carry.last),
+        ref_gpose=torch.where(keep, base, carry.ref_gpose),
+        last_gpose=torch.where(keep, gpose, carry.last_gpose),
+        prior_rel=torch.where(keep, rel, carry.prior_rel),
+    )
+    out_pose = torch.where(keep, gpose, carry.last_gpose)
+    return new_carry, out_pose, need_switch & keep, discarded
+
+
+def _step_flagged(model: LaserModel, carry: _OdoCarry, cur: Scan):
+    """One odometry step with no host sync, the exhaustive fallback left
+    to the caller.
 
     The keyframe match ``(ref, cur, prior_rel)`` and the switch-branch
     match ``(last, cur, 0)`` run as one fused PSM launch of two pairs,
     both error indices (against ``last``) with them; the branch is a
-    select (both branches are pure, so the result equals a conditional)."""
+    select (both branches are pure, so the result equals a conditional).
+
+    Returns ``(new_carry, (pose, switched, discarded, deep), psm_rel)``.
+    ``deep`` says that the keyframe switched and the re-match against the
+    previous scan is bad too, so the step needs the ±π correlative match:
+    in a batch afterwards (:func:`odometry_keyframe`, pass 2), or at once
+    (:func:`_step_deep`, from the carry *before* this step and ``psm_rel``,
+    the banded estimate against the previous scan)."""
     cur2 = _stack2(cur, cur)
     res, (ex, ey, _) = _match_and_score(
         model,
@@ -84,26 +112,47 @@ def _step(model: LaserModel, carry: _OdoCarry, cur: Scan):
     err = torch.sqrt(ex + ey)
     need_switch = res.fail[0] | (err[0] > KEYFRAME_ERR_THRESH)
     # Switched: re-match against the previous scan from a zero prior and
-    # flag it for the batched exhaustive re-match when that fails too.
+    # flag it for the exhaustive re-match when that fails too.
     bad2 = res.fail[1] | (err[1] > 2.0 * KEYFRAME_ERR_THRESH)
     rel = torch.where(need_switch, res.pose[1], res.pose[0])
-    discarded = need_switch & res.fail[1]
-    weak = need_switch & bad2
-    keep = ~discarded
+    new_carry, pose, switched, discarded = _settle(carry, cur, need_switch, rel, res.fail[1])
+    # A failed re-match is a bad one, so ``deep`` covers ``discarded``.
+    return new_carry, (pose, switched, discarded, need_switch & bad2), res.pose[1]
 
-    base = torch.where(need_switch, carry.last_gpose, carry.ref_gpose)
-    gpose = se2.compose(base, rel)
-    new_carry = _OdoCarry(
-        ref=_where_scan(need_switch & keep, carry.last, carry.ref),
-        last=_where_scan(keep, cur, carry.last),
-        ref_gpose=torch.where(keep, base, carry.ref_gpose),
-        last_gpose=torch.where(keep, gpose, carry.last_gpose),
-        prior_rel=torch.where(
-            keep, torch.where(need_switch, rel, res.pose[0]), carry.prior_rel
-        ),
+
+def _step(model: LaserModel, carry: _OdoCarry, cur: Scan):
+    """One pass-1 odometry step (see :func:`_step_flagged`): ``(new_carry,
+    (pose, switched, discarded, deep))``."""
+    return _step_flagged(model, carry, cur)[:2]
+
+
+def _step_deep(model: LaserModel, carry: _OdoCarry, cur: Scan, psm_rel: Tensor):
+    """The step of a scan that :func:`_step_flagged` marked ``deep``,
+    finished inline (the per-scan online frontends): a full ±π
+    correlative match of ``cur`` against the previous scan replaces the
+    banded estimate ``psm_rel``, and the step is settled from ``carry``,
+    the carry before the flagged step.
+
+    The step is *weak* when the exhaustive match is unconfident, and a
+    *fracture* when it is unconfident and disagrees with the banded
+    estimate (no dt-gap term here, unlike :func:`_deep_rematch_chunk`).
+    Returns ``(new_carry, (pose, switched, discarded, weak, fracture))``,
+    the last two including ``discarded``."""
+    last1, cur1 = (Scan(*(x[None] for x in s)) for s in (carry.last, cur))
+    corr = match_correlative(model, last1, cur1, search_xy=1.2, n_theta=72)
+    ex, ey, _ = error_index(model, last1, cur1, corr.pose)
+    err = torch.sqrt(ex + ey)[0]
+    score, rel = corr.score[0], corr.pose[0]
+    weak = (score < 0.4) | (err > 3.0 * KEYFRAME_ERR_THRESH)
+    low_conf = (score < 0.35) | (err > 6.0 * KEYFRAME_ERR_THRESH)
+    d = se2.relative(psm_rel, rel)
+    disagree = (torch.sqrt(torch.sum(d[:2] ** 2)) > 0.5) | (
+        torch.abs(se2.normalize_angle(d[2])) > 0.3
     )
-    out_pose = torch.where(keep, gpose, carry.last_gpose)
-    return new_carry, (out_pose, need_switch & keep, discarded, weak | discarded)
+    frac = low_conf & disagree
+    switch = torch.ones_like(weak)
+    new_carry, pose, switched, discarded = _settle(carry, cur, switch, rel, corr.fail[0])
+    return new_carry, (pose, switched, discarded, weak | discarded, frac | discarded)
 
 
 def _deep_rematch_chunk(

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core import se2
+from ..core.device import resolve_device
 from ..core.scan import LaserModel, Scan
 from ..graph.loop_closure import (
     VerifiedLoops,
@@ -607,9 +608,7 @@ def slam_offline(
             "slam_offline: only the correlative pipeline (use_correlative=True) is "
             "ported; the ICP-verified loop rounds (_loop_round) are not (ROADMAP.md, "
             "item 5.7)")
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    dev = resolve_device(device)
     timing = diag.setdefault("timing", {}) if diag is not None else None
     ranges = torch.as_tensor(ranges, dtype=torch.float32).to(dev)
 

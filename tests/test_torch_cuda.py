@@ -263,3 +263,142 @@ def test_cli_slam_on_cuda_twice(cuda, tmp_path, capsys):
     with capsys.disabled():
         print(f"\ncli slam twice on cuda: bit-identical {diff == 0.0}, max |dpose| {diff:.3g}")
     assert diff < 1e-2
+
+
+# -- the online session and localization on the card ---------------------------
+
+def _online_scans(n):
+    ranges, gt, _ = synthetic_log.synthetic_log(n_scans=n, n_whips=1)
+    return ranges.astype(np.float32), gt
+
+
+def _small_online_cfg():
+    import dataclasses
+
+    from laser_slam_tpu_torch.runtime.slam import SlamConfig
+
+    return dataclasses.replace(
+        SlamConfig(), submap_points=256, wide_points=512, max_loops=64, verify_chunk=16,
+        n_theta=24, n_peaks=4, per_dst=6, search_xy=3.0, gn_iters=10)
+
+
+def test_feed_scan_on_the_card_matches_the_cpu_session(cuda):
+    """300 synthetic scans (one whip behind a dt gap, so the inline ±π
+    fallback runs) through ``OnlineSlam`` on the card and on the CPU, no
+    backend round: one K1 launch of two pairs a scan and no other route,
+    the same weak and fracture flags. Float transcendentals differ between
+    the devices in the last bit, so a pair's PSM match may stop a few mm
+    apart and the chains drift apart with the scans: held are the
+    per-scan relative motions, at the cross-device bounds of the kernel's
+    own parity test (median 5 mm / 0.1°, worst 0.15 m / 2°), and the end
+    of the 300-scan chain within 0.5 m."""
+    from laser_slam_tpu_torch.runtime.online import OnlineSlam
+
+    ranges, _ = _online_scans(300)
+    pad = S.pad_beams(ranges, S.LMS211.n_beams, S.LMS211.max_range + 1.0)
+    sessions = {}
+    for dev in ("cuda", "cpu"):
+        slam = OnlineSlam(S.LMS211, optimize_every=10 ** 6, use_fusion=True, device=dev)
+        before = psm_kernel.match_psm_fused.launches
+        for r in pad:
+            slam.feed_scan(r)
+        sessions[dev] = (slam, psm_kernel.match_psm_fused.launches - before)
+    (g, g_launches), (c, c_launches) = sessions["cuda"], sessions["cpu"]
+    assert g_launches == 299 and c_launches == 0
+    assert g._carry.last_gpose.device.type == "cuda" and g._imap.grid.log_odds.device.type == "cuda"
+    assert g._weak == c._weak and g._fracture == c._fracture and sum(g._weak) >= 1
+    steps = [se2.np_relative(s.trajectory[:-1], s.trajectory[1:]) for s in (g, c)]
+    d = steps[0] - steps[1]
+    dt, dr = np.linalg.norm(d[:, :2], axis=1), np.abs((d[:, 2] + np.pi) % (2 * np.pi) - np.pi)
+    assert np.median(dt) < 5e-3 and dt.max() < 0.15, (np.median(dt), dt.max())
+    assert np.degrees(np.median(dr)) < 0.1 and np.degrees(dr.max()) < 2.0
+    assert np.linalg.norm(g.trajectory[-1, :2] - c.trajectory[-1, :2]) < 0.5
+    assert np.linalg.norm(g.pose[:2] - c.pose[:2]) < 0.5
+    # The live maps: as much wall in both (the chains drift apart by more
+    # than a 0.1 m cell, so the cells themselves are not compared).
+    a, b = (g._imap.grid.log_odds > 0).sum().item(), (c._imap.grid.log_odds > 0).sum().item()
+    assert b > 500 and abs(a - b) < 0.2 * b
+
+
+def test_async_session_on_its_own_stream_ends_where_the_sync_one_does(cuda):
+    """The async session (worker thread, a CUDA stream of its own) and the
+    synchronous one over the 170-scan box loop: after ``flush`` the final
+    trajectories agree to 0.25 m, the bound the JAX package's own test of
+    this property holds, and both close the lap. The frontends are the
+    same launches on the same inputs, so before any round applies they
+    agree exactly."""
+    from laser_slam_tpu_torch.runtime.online import OnlineSlam
+
+    model = S.LaserModel(**synthetic_log.BOX_LOOP_MODEL)
+    scans = synthetic_log.box_loop_scans(170)
+    out = {}
+    for mode in (False, True):
+        slam = OnlineSlam(model, cfg=_small_online_cfg(), optimize_every=4,
+                          incremental_map=False, async_backend=mode, device=cuda)
+        for r in scans:
+            slam.feed_scan(r)
+        if mode:
+            slam.flush()
+            assert slam._bg_stream is not None
+            assert slam._bg_stream != torch.cuda.current_stream(cuda)
+        else:
+            slam._backend_round()
+        bank = slam._backend._bank
+        assert int((bank["act"] & bank["strict"]).sum()) >= 1
+        out[mode] = slam
+    s, a = out[False], out[True]
+    assert a.async_stats["started"] >= 2 and a.async_stats["applied"] >= 1
+    assert a._bg_result is None and not a._pending_round and not a._bg_thread.is_alive()
+    np.testing.assert_array_equal(np.stack(a._odo_chain)[:70], np.stack(s._odo_chain)[:70])
+    dev = np.linalg.norm(s.trajectory[:, :2] - a.trajectory[:, :2], axis=1)
+    assert float(dev.max()) < 0.25, f"sync/async final trajectories diverge {dev.max():.3f} m"
+
+
+def test_update_beam_in_chunks_equals_unchunked(cuda):
+    """``update_beam`` at 384 particles on a 0.1 m grid (S = 500 samples a
+    beam: 384 x 181 x 500 fits in one piece) in chunks of 100 and in one
+    piece: the same log-weights to float round-off. And the card against
+    the CPU on the same cloud: 1e-4."""
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+    from laser_slam_tpu_torch.mapping import occupancy as occ
+
+    model = S.LMS211
+    ranges, gt = _online_scans(120)
+    pad = S.pad_beams(ranges, model.n_beams, model.max_range + 1.0)
+    scans = pp.preprocess(torch.as_tensor(pad, device=cuda), model)
+    poses = torch.as_tensor(gt, dtype=torch.float32, device=cuda)
+    spec = occ.spec_for_trajectory(gt, model.max_range, 0.1)
+    grid = occ.integrate_scans(occ.empty_grid(spec, device=cuda), model, scans, poses)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    state = pf.init_gaussian(gen, poses[60], 384, sigma_xy=0.1, sigma_theta=0.05)
+    obs, valid = scans.ranges[60], ~scans.bad[60]
+    whole = pf.update_beam(state, grid, model, obs, valid)
+    parts = pf.update_beam(state, grid, model, obs, valid, chunk=100)
+    np.testing.assert_allclose(parts.log_w.cpu().numpy(), whole.log_w.cpu().numpy(), atol=1e-6)
+    cpu_state = pf.ParticleState(state.poses.cpu(), state.log_w.cpu())
+    cpu_grid = occ.OccupancyGrid(grid.log_odds.cpu(), spec)
+    on_cpu = pf.update_beam(cpu_state, cpu_grid, model, obs.cpu(), valid.cpu(), chunk=100)
+    # A ray sample on a cell edge may read the neighbouring cell on the
+    # other device (last bits of cos/sin): a few particles' weights move.
+    d = np.abs(parts.log_w.cpu().numpy() - on_cpu.log_w.numpy())
+    assert (d > 1e-4).mean() < 0.05 and d.max() < 0.1
+
+
+def test_systematic_resample_on_the_card_against_the_cpu(cuda):
+    """A float32 ``cumsum`` on the card is a parallel scan with another
+    summation order than the CPU's, so an index at a boundary can differ
+    by one: held is the count of differing indices (under 1 %), not
+    equality."""
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    rng = np.random.default_rng(0)
+    poses = torch.as_tensor(rng.normal(0, 1, (4096, 3)).astype(np.float32))
+    poses[:, 0] = torch.arange(4096)           # the row's own index, to read the choice back
+    log_w = torch.as_tensor(rng.normal(0, 2.0, 4096).astype(np.float32))
+    log_w = log_w - torch.logsumexp(log_w, 0)
+    on_cpu = pf.systematic_resample_at(pf.ParticleState(poses, log_w), 0.37)
+    on_card = pf.systematic_resample_at(pf.ParticleState(poses.to(cuda), log_w.to(cuda)), 0.37)
+    i_cpu, i_card = on_cpu.poses[:, 0].numpy(), on_card.poses[:, 0].cpu().numpy()
+    differ = i_cpu != i_card
+    assert differ.mean() < 0.01 and np.abs(i_cpu - i_card).max() <= 1

@@ -109,6 +109,64 @@ def ray_cast(walls: np.ndarray, poses: np.ndarray, angles: np.ndarray,
     return out
 
 
+# -- the closed lap of the online-session tests ------------------------------
+# A 10 x 8 m rectangle seen by a 181-beam, 180° sensor of 15 m range, and a
+# lap of its interior that ends where it began: small enough for a CPU, and
+# a loop that only a backend round can close.
+
+BOX_LOOP_MODEL = {"name": "TEST181", "n_beams": 181, "fov_deg": 180.0, "fi_min_deg": -90.0,
+                  "max_range": 15.0, "min_range": 0.1}
+
+
+def box_loop_ranges(pose, box=(-1.0, 9.0, -1.0, 7.0)) -> np.ndarray:
+    """Analytic ranges ``[181]`` of an axis-aligned rectangle seen from
+    ``pose``, plus a stub wall at x=3, y∈[-1, 0.5] that breaks the room's
+    180° rotational symmetry (without it every scan from the centre line
+    has a perfect rotated alias)."""
+    n, max_range = BOX_LOOP_MODEL["n_beams"], BOX_LOOP_MODEL["max_range"]
+    fi = np.radians(BOX_LOOP_MODEL["fi_min_deg"]
+                    + np.arange(n) * (BOX_LOOP_MODEL["fov_deg"] / (n - 1))) + pose[2]
+    dx, dy = np.cos(fi), np.sin(fi)
+    x0, x1, y0, y1 = box
+    ts = np.full((5, n), np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for k, t in enumerate(
+            [(x0 - pose[0]) / dx, (x1 - pose[0]) / dx,
+             (y0 - pose[1]) / dy, (y1 - pose[1]) / dy,
+             (3.0 - pose[0]) / dx]
+        ):
+            hit = pose[1] + t * dy if k in (0, 1, 4) else pose[0] + t * dx
+            lo, hi = (y0, 0.5) if k == 4 else ((y0, y1) if k < 2 else (x0, x1))
+            ok = (t > 0) & (hit >= lo) & (hit <= hi)
+            ts[k] = np.where(ok, t, np.inf)
+    return np.minimum(ts.min(axis=0), max_range - 0.01).astype(np.float32)
+
+
+def box_loop_trajectory(n: int = 170) -> np.ndarray:
+    """Poses ``[n, 3]`` of a rectangular lap inside the box room, ending
+    at the start."""
+    waypoints = np.array([[1.0, 1.0], [7.0, 1.0], [7.0, 5.0], [1.0, 5.0], [1.0, 1.0]])
+    seglen = np.linalg.norm(np.diff(waypoints, axis=0), axis=1)
+    s = np.linspace(0.0, seglen.sum() * 0.999, n)
+    cum = np.concatenate([[0.0], np.cumsum(seglen)])
+    poses = np.zeros((n, 3), np.float32)
+    for i, si in enumerate(s):
+        k = int(np.searchsorted(cum, si, side="right")) - 1
+        f = (si - cum[k]) / seglen[k]
+        xy = waypoints[k] * (1 - f) + waypoints[k + 1] * f
+        d = waypoints[k + 1] - waypoints[k]
+        poses[i] = [xy[0], xy[1], np.arctan2(d[1], d[0])]
+    return poses
+
+
+def box_loop_scans(n: int = 170, seed: int = 0, noise: float = 0.004) -> np.ndarray:
+    """Ranges ``[n, 181]`` float32 along :func:`box_loop_trajectory`."""
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        (box_loop_ranges(p) + rng.normal(0, noise, BOX_LOOP_MODEL["n_beams"])).astype(np.float32)
+        for p in box_loop_trajectory(n)])
+
+
 def clearance(walls: np.ndarray, x: float, y: float) -> float:
     """Distance from ``(x, y)`` to the nearest wall segment."""
     q, e = walls[:, :2], walls[:, 2:] - walls[:, :2]
