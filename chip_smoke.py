@@ -40,8 +40,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
 6. the online path, on the same log at ``SlamConfig()`` defaults:
    ``SlamV1(work_mode="mapping")`` as shipped (async backend on a worker
    thread with a CUDA stream of its own, the filter and the live map on)
-   fed all scans through ``feed_scan_main`` in real time (10 Hz)
-   with a local-map and an obstacle callback, then ``stop()`` and ``flush(final_round=True)``:
+   fed all scans through ``feed_scan_main`` in real time (10 Hz) with a
+   local-map and an obstacle callback, then ``stop()`` and ``flush(final_round=True)``:
    per-scan latency with and without a round in flight, the scheduler's
    counters, the rounds' walls, ATE before and after. K1's two-pair
    entry launches once a scan; every 16th scan's inputs are held against
@@ -54,11 +54,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
    field, global relocalization from 10,000 samples, 200 particle-filter
    ticks timed with CUDA events, one chunked ``update_beam``; the card's
    tick against the same functions on the CPU with the same draws;
-8. the bundled intel-lab log, when present at the repo's reference-data
-   location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
+8. the distributed topology (``[tcp]``): ``cli serve`` on ``cuda`` in a
+   process of its own and ``cli client`` on ``cuda`` streaming the whole
+   log to it over localhost TCP; the client's K1 two-pair launches, the
+   server's rounds, loops and trajectory (its ATE below the client's raw
+   odometry chain's), per-scan latency, the wire bytes;
+9. the other matchers (``[matchers]``): polar ICP and PL-ICP over the
+   log's consecutive pairs, ``odometry_pairwise(use_icp=True)`` beside the
+   PSM route, the card against the CPU on the first 300 pairs;
+10. the ICP-verified branch of ``slam_offline`` (``[slam-icp]``,
+    ``use_correlative=False``) with ``use_submaps`` off and on, held to
+    the JAX package's loops and ATE from the same front end;
+11. feature-RANSAC loop verification (``[features]``) over one round's
+    candidates and the pairs of neighbouring anchors, the card against
+    the CPU under the same draws;
+12. the bundled intel-lab log, when present at the repo's reference-data
+    location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
 
-The last three lines of stdout are the kernels' JSON record, the card's
-name and power limit, and the device JSON line.
+The last three lines of stdout are the kernels' JSON
+record, the card's name and power limit, and the device JSON line.
 """
 
 from __future__ import annotations
@@ -86,6 +100,28 @@ sys.path.insert(0, str(ROOT / "tools"))
 # 1.10 × this + 0.02 m.
 JAX_SYNTHETIC_ATE = 3.931748628616333
 ATE_FACTOR, ATE_SLACK = 1.10, 0.02
+# The JAX package's ICP-verified branch (use_correlative=False) on the same
+# log, by use_submaps: (loops kept in the last round, SLAM ATE in m), measured
+# on the CPU with jax 0.9.0 by tools/icp_branch_reference.py from two front
+# ends: JAX's own keyframe odometry (baselines/jax_synthetic_front.npz,
+# odometry ATE 3.9317 m) and the port's on an NVIDIA H100 80GB HBM3
+# (baselines/port_card_synthetic_front.npz, odometry ATE 4.1497 m; this
+# script holds its own run's front end to that file). The branch amplifies
+# its input (53 loops against 1), so the port is held to JAX from the same
+# front end: the same loop count, the ATE within SLAM_ICP_ATE_ATOL (float32
+# round-off of the two packages' rounds: 1e-4 m measured), and from JAX's
+# front end below that odometry's ATE.
+JAX_SLAM_ICP = {False: (53, 3.592615842819214), True: (60, 3.473823308944702)}
+JAX_SLAM_ICP_FROM_CARD_FRONT = {False: (1, 4.222824573516846), True: (5, 4.207590103149414)}
+JAX_FRONT_ODOMETRY_ATE = 3.931748628616333
+SLAM_ICP_ATE_ATOL = 0.01
+# The card's keyframe odometry against the committed copy of it: the same
+# flags, every pose within this (the chain kernel is deterministic).
+CARD_FRONT_ATOL = 1e-4
+# Feature-RANSAC verification of the 531 pairs of anchors one and two apart
+# on the synthetic log: at least this many accepted on the card (a floor well
+# below what the verifier accepts there with its own draws on the CPU).
+FEATURES_MIN_NEAR_ACCEPTED = 40
 # The bundled logs' location, as in tests/conftest.py, and the recorded
 # keyframe-odometry ATE of the JAX package on intel-lab
 # (tests/test_accuracy.py) with the regression factor applied there.
@@ -787,6 +823,293 @@ def localize_phase(cli, log_path, log, smi):
         raise AssertionError("the card's particle-filter tick disagrees with the CPU's")
 
 
+def ate_of(poses, gt) -> float:
+    """ATE rmse of ``poses [T, 3]`` (any array) against the first ``T``
+    ground-truth poses, on the card."""
+    from laser_slam_tpu_torch.eval import metrics
+
+    p = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device="cuda")
+    return float(metrics.ate(p, torch.as_tensor(gt[: p.shape[0]], dtype=torch.float32,
+                                                device="cuda")).rmse)
+
+
+def tcp_phase(cli, K, log_path, log, smi, tmp_dir):
+    """The distributed topology (see the module docstring, phase 8): the
+    server a process of its own, the client in this one. Returns K1's
+    two-pair launches on the client."""
+    from laser_slam_tpu_torch.eval.diagnostics import classify_loops
+    from laser_slam_tpu_torch.runtime.slam import SlamConfig
+
+    t = log.n_scans
+    srv_traj, srv_diag, cli_traj = (os.path.join(tmp_dir, n) for n in ("server.txt", "server.npz",
+                                                                      "client.txt"))
+    server = subprocess.Popen(
+        [sys.executable, "-m", "laser_slam_tpu_torch.cli", "serve", "--port", "0", "--device",
+         "cuda", "--timeout", "300", "--out", srv_traj, "--diag", srv_diag],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        first = server.stdout.readline()
+        if not first.startswith("listening on :"):
+            raise AssertionError(f"cli serve did not start: {first!r}{server.stdout.read()}")
+        port = int(first.split(":")[1].split()[0])
+        K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+        t0 = time.perf_counter()
+        run = cli.main(["client", log_path, "--port", str(port), "--device", "cuda",
+                        "--out", cli_traj])
+        client_s = time.perf_counter() - t0
+        launches = (K.match_psm_fused.launches, K.odometry_chain_fused.launches)
+        rest, _ = server.communicate(timeout=600)
+        served_s = time.perf_counter() - t0
+        if server.returncode != 0:
+            raise AssertionError(f"cli serve failed ({server.returncode}):\n{rest}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    fe = run.frontend
+    if launches != (t - 1, 0):
+        raise AssertionError(f"the client launched K1's two-pair entry {launches[0]} times for "
+                             f"{t - 1} steps, its chain entry {launches[1]} times")
+    d = np.load(srv_diag)
+    poses, walls = np.loadtxt(srv_traj), d["round_walls"]
+    bank = {k[5:]: d[k] for k in d.files if k.startswith("bank_")}
+    strict_used = bank["act"] & bank["strict"] & bank["used"]
+    if poses.shape != (t, 3) or not np.isfinite(poses).all() or len(walls) < 2 \
+            or strict_used.sum() < 1:
+        raise AssertionError(f"server: trajectory {poses.shape}, {len(walls)} rounds, "
+                             f"{int(strict_used.sum())} strict loops used")
+    ate_odo, ate_srv = ate_of(fe.odometry, log.gt_pose), ate_of(poses, log.gt_pose)
+    ate_client = ate_of(np.stack(fe.poses), log.gt_pose)
+    # The server's anchors: every anchor_stride-th scan (SlamConfig()).
+    rep = classify_loops(bank["src"], bank["dst"], bank["rel"], bank["used"],
+                         log.gt_pose[::SlamConfig().anchor_stride])
+    sec = run.seconds
+    phase("tcp", f"cli serve (its own process) + cli client, {t} scans over localhost on cuda: "
+                 f"client {client_s:.2f}s ({t / run.wall:.1f} scans/s), server done "
+                 f"{served_s:.2f}s after the first scan; K1 two-pair launches on the client "
+                 f"{launches[0]} (one a scan); {smi}")
+    phase("tcp", "client per-scan latency " + json.dumps({
+        "all": percentiles(sec[1:]), "first_scan_ms": float(sec[0] * 1e3),
+        "pose_updates_applied": fe.n_updates, "weak": int(sum(fe.weak)),
+        "fractures": int(sum(fe.fracture)), "card": smi}))
+    phase("tcp", f"server: {len(walls)} rounds, walls s {[round(float(w), 3) for w in walls]}; "
+                 f"loops banked {int(bank['act'].sum())} / strict {int((bank['act'] & bank['strict']).sum())}"
+                 f" / used {int(bank['used'].sum())}, of the used wrong (> 0.5 m or 0.2 rad from the "
+                 f"ground truth) {rep.n - rep.n_correct} = {(rep.n - rep.n_correct) / max(rep.n, 1):.4f}; "
+                 f"wire bytes up {int(d['bytes_in'])} (client sent {fe.sock.bytes_sent}), down "
+                 f"{int(d['bytes_out'])} in {int(d['n_updates'])} pose updates (client read "
+                 f"{fe.sock.bytes_received}); ATE client raw odometry "
+                 f"chain {ate_odo:.4f} m, client corrected {ate_client:.4f} m, server {ate_srv:.4f} m")
+    # Updates the server sent after the client had finished streaming and
+    # closed are counted by the server only.
+    if int(d["bytes_in"]) != fe.sock.bytes_sent or int(d["bytes_out"]) < fe.sock.bytes_received:
+        raise AssertionError("the two ends count different bytes on the wire")
+    if not ate_srv < ate_odo:
+        raise AssertionError(f"server ATE {ate_srv} is not below the odometry chain's {ate_odo}")
+    return launches[0]
+
+
+def matchers_phase(log, scans, smi):
+    """Polar ICP and PL-ICP on the card (see the module docstring, phase 9)."""
+    from laser_slam_tpu_torch.core import scan as S
+    from laser_slam_tpu_torch.ops import icp, odometry, plicp
+
+    model = log.model
+    ref, cur = pairs(scans, S)
+    n = ref.ranges.shape[0]
+    out = {}
+    for name, fn in (("match_icp", icp.match_icp), ("match_plicp", plicp.match_plicp)):
+        info = {}
+        fn(model, ref, cur)                          # warm-up: the allocator's first pass
+        res, sec = host_s(lambda: fn(model, ref, cur, info=info))
+        it = info["iters"].cpu().numpy()
+        out[name] = {"pairs": n, "wall_s": sec, "pairs_per_s": n / sec, "iters_mean": float(it.mean()),
+                     "iters_max": int(it.max()), "iters_total": int(it.sum()),
+                     "fails": int(res.fail.sum())}
+    for route, use_icp in (("odometry_pairwise_icp", True), ("odometry_pairwise_psm", False)):
+        res, sec = host_s(lambda: odometry.odometry_pairwise(model, scans, use_icp=use_icp))
+        out[route] = {"wall_s": sec, "ate_m": ate_of(res.poses.cpu(), log.gt_pose),
+                      "failed_pairs": int(res.discarded.sum())}
+    out["card"] = smi
+    phase("matchers", json.dumps(out))
+
+    # The card against the CPU on the first 300 pairs: the same bounds as
+    # K1's (last bits of atan2 / cos differ between the devices and can
+    # move a match by a few mm).
+    a, b = pairs(S.Scan(*(x[:301] for x in scans)), S)
+    for name, fn in (("match_icp", icp.match_icp), ("match_plicp", plicp.match_plicp)):
+        cross_device_parity(fn(model, a, b), fn(model, a.to("cpu"), b.to("cpu")),
+                            f"{name} {model.name} x300, cuda vs cpu")
+
+
+def slam_icp_phase(log, smi):
+    """The ICP-verified branch of ``slam_offline`` on the card (phase 10):
+    its rounds from JAX's front end (the odometry in
+    ``baselines/jax_synthetic_front.npz``), and ``slam_offline`` end to end
+    from the port's own front end, each held to JAX's loops and ATE from
+    the same front end. The branch amplifies its input: from the two front
+    ends (odometry ATE 3.93 and 4.15 m) it keeps 53 and 1 loops."""
+    from laser_slam_tpu_torch.graph.submap import build_submaps
+    from laser_slam_tpu_torch.ops import odometry, preprocess as pp
+    from laser_slam_tpu_torch.runtime import slam
+
+    dev = torch.device("cuda")
+    model = log.model
+    scans = pp.preprocess(torch.as_tensor(log.ranges, device=dev), model)
+    jax_front = np.load(ROOT / "baselines" / "jax_synthetic_front.npz")
+    odo = odometry.odometry_keyframe(model, scans, timestamps=log.timestamps)
+    card_front = {k: getattr(odo, k).cpu().numpy() for k in ("poses", "weak", "fracture")}
+    os.makedirs(ROOT / "build", exist_ok=True)
+    np.savez_compressed(ROOT / "build" / "slam_icp_card_front.npz", **card_front)
+    # The card-front reference holds only for the front end it came from.
+    kept = np.load(ROOT / "baselines" / "port_card_synthetic_front.npz")
+    front_err = float(np.abs(card_front["poses"] - kept["poses"]).max())
+    if not (front_err <= CARD_FRONT_ATOL and all(np.array_equal(card_front[k], kept[k])
+                                                 for k in ("weak", "fracture"))):
+        raise AssertionError(f"the card's keyframe odometry moved from "
+                             f"baselines/port_card_synthetic_front.npz (max |dpose| {front_err}, "
+                             f"or its flags): rerun tools/icp_branch_reference.py on it")
+
+    def held(what, n_loops, ate, want):
+        loops, ref = want
+        phase("slam-icp", f"  {what}: loops kept {n_loops} (JAX {loops}), ATE {ate:.6f} m (JAX "
+                          f"{ref:.6f}, |diff| {abs(ate - ref):.2e}, tolerance {SLAM_ICP_ATE_ATOL}; "
+                          f"the bound 1.10 x JAX + 0.02 m is {ATE_FACTOR * ref + ATE_SLACK:.4f})")
+        if n_loops != loops or not abs(ate - ref) <= SLAM_ICP_ATE_ATOL:
+            raise AssertionError(f"ICP-branch SLAM {what}: {n_loops} loops and ATE {ate}, "
+                                 f"JAX {loops} and {ref}")
+
+    for use_submaps in (False, True):
+        cfg = slam.SlamConfig(use_correlative=False, use_submaps=use_submaps)
+        # The rounds from JAX's front end: its odometry on the card's scans.
+        front = {k: torch.as_tensor(jax_front[k][: log.n_scans], device=dev)
+                 for k in ("poses", "weak", "fracture")}
+        timing = {}
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, anchor_scans, anchor_poses, rel_seq, seq_w, _) = slam._frontend_post(
+            cfg, scans, front["poses"], front["weak"], front["fracture"])
+        submaps = (build_submaps(model, scans, front["poses"], cfg.anchor_stride, cfg.submap_points)
+                   if use_submaps else None)
+        (ap, n_loops, chi), sec = host_s(lambda: slam.run_icp_rounds(
+            model, cfg, anchor_scans, anchor_poses, rel_seq, seq_w, submaps, timing=timing))
+        ate = ate_of(slam._reattach(cfg, ap, front["poses"]).cpu(), log.gt_pose)
+        ate_odo = ate_of(front["poses"].cpu(), log.gt_pose)
+        phase("slam-icp", f"use_submaps={use_submaps}, from JAX's odometry: {cfg.rounds} rounds "
+                          f"(radius {cfg.loop_radius} m doubling) of {cfg.max_loops} candidates over "
+                          f"{anchor_poses.shape[0]} anchors in {sec:.3f}s, rounds s "
+                          f"{[round(x, 3) for x in timing['rounds']]}; chi2 {float(chi):.4f}; ATE "
+                          f"{ate_odo:.4f} m -> {ate:.4f} m; peak device memory "
+                          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        held("from JAX's odometry", int(n_loops), ate, JAX_SLAM_ICP[use_submaps])
+        if not ate < JAX_FRONT_ODOMETRY_ATE:
+            raise AssertionError(f"ICP-branch SLAM ATE {ate} from JAX's odometry is not below "
+                                 f"that odometry's {JAX_FRONT_ODOMETRY_ATE}")
+
+        # slam_offline end to end: the port's own front end on the card.
+        diag = {}
+        res, sec = host_s(lambda: slam.slam_offline(model, log.ranges, cfg, diag=diag,
+                                                    timestamps=log.timestamps))
+        poses = res.poses.cpu().numpy()
+        if res.poses.device.type != "cuda" or not np.isfinite(poses).all() \
+                or len(diag["timing"]["rounds"]) != cfg.rounds:
+            raise AssertionError(f"slam_offline(use_correlative=False, use_submaps={use_submaps}) "
+                                 f"did not run its {cfg.rounds} rounds on cuda")
+        odo_err = float(np.abs(res.odo_poses.cpu().numpy() - kept["poses"]).max())
+        if not odo_err <= CARD_FRONT_ATOL:
+            raise AssertionError(f"slam_offline's odometry is {odo_err} from the committed front end")
+        ate_odo, ate = ate_of(res.odo_poses.cpu(), log.gt_pose), ate_of(poses, log.gt_pose)
+        phase("slam-icp", f"use_submaps={use_submaps}, slam_offline end to end: {log.n_scans} scans "
+                          f"in {sec:.3f}s (frontend {diag['timing']['frontend']:.3f}s, rounds s "
+                          f"{[round(x, 3) for x in diag['timing']['rounds']]}); chi2 "
+                          f"{float(res.chi2):.4f}; ATE odometry {ate_odo:.4f} m -> {ate:.4f} m; "
+                          f"front end against the committed one max |dpose| {odo_err:.2e}; {smi}")
+        held("end to end", int(res.n_loops), ate, JAX_SLAM_ICP_FROM_CARD_FRONT[use_submaps])
+
+
+def features_phase(log, smi):
+    """Feature-RANSAC verification (phase 11) of one round's candidates
+    and of the pairs of anchors one and two apart (0.7-1.4 m), which the
+    verifier accepts in good part (the round's candidates lie farther
+    apart, and it accepts none of them)."""
+    from laser_slam_tpu_torch.features import describe_features, detect_features
+    from laser_slam_tpu_torch.features.detector import MAX_FEATURES
+    from laser_slam_tpu_torch.features.ransac import candidate_correspondences, draw_hypotheses
+    from laser_slam_tpu_torch.graph import loop_closure as lc
+    from laser_slam_tpu_torch.runtime import slam
+
+    dev = torch.device("cuda")
+    model, cfg = log.model, slam.SlamConfig()
+    (_, _, _, anchor_scans, anchor_poses, _, _, _) = slam._frontend(
+        model, cfg, torch.as_tensor(log.ranges, device=dev), log.timestamps)
+    # The candidates the ICP branch's first round verifies, then the near
+    # pairs.
+    lo, hi = lc.submap_bboxes(model, anchor_scans, anchor_poses)
+    wave = lc.select_candidates(lc.gate_matrix(anchor_poses[:, :2], lo, hi, radius=cfg.loop_radius),
+                                anchor_poses[:, :2], cfg.max_loops)
+    a = anchor_poses.shape[0]
+    i = torch.arange(a, device=dev)
+    near_src = torch.cat([i[: a - 1], i[: a - 2]])
+    near_dst = torch.cat([i[1:], i[2:]])
+    cand = lc.LoopCandidates(torch.cat([wave.src, near_src]), torch.cat([wave.dst, near_dst]),
+                             torch.cat([wave.valid, torch.ones_like(near_src, dtype=torch.bool)]))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lc.verify_loops_features(model, anchor_scans, anchor_poses, cand, gen)      # warm-up
+    draws = []
+
+    def drawing(*pair):
+        draws.append(draw_hypotheses(candidate_correspondences(*pair)[2], gen))
+        return draws[-1]
+
+    out, sec = host_s(lambda: lc._verify_features(model, anchor_scans, anchor_poses, cand, drawing))
+    # The same draws on the CPU.
+    to_cpu = lambda x: type(x)(*(y.cpu() for y in x))                            # noqa: E731
+    host = lc.verify_loops_features_at(model, to_cpu(anchor_scans), anchor_poses.cpu(),
+                                       to_cpu(cand), *(d.cpu() for d in draws[-1]))
+
+    def correspondences(scans, src, dst):
+        """Each pair's features and descriptor correspondences, on the
+        CPU: where they agree between the devices, so must the verifier."""
+        feats = detect_features(model, scans)
+        descs = describe_features(model, scans, feats)
+        j, ok, _ = candidate_correspondences(type(feats)(*(x[src] for x in feats)), descs[src],
+                                             type(feats)(*(x[dst] for x in feats)), descs[dst])
+        return feats.beam[src].cpu(), feats.beam[dst].cpu(), torch.where(ok, j, -1).cpu()
+
+    # χ² distances that are equal in exact arithmetic differ in the last
+    # bit between the devices (summation order) and break ties differently,
+    # as tests/test_torch_features.py finds on the CPU against JAX.
+    same = np.ones(cand.src.shape[0], dtype=bool)
+    for x, y in zip(correspondences(anchor_scans, cand.src, cand.dst),
+                    correspondences(to_cpu(anchor_scans), cand.src.cpu(), cand.dst.cpu())):
+        same &= (x == y).all(dim=1).numpy()
+    acc_c, acc_h = out.accept.cpu().numpy(), host.accept.numpy()
+    n_wave = wave.src.shape[0]
+    both = same & acc_c & acc_h
+    q_c, q_h = out.quality.cpu().numpy(), host.quality.numpy()
+    # An inlier at the 0.4 m edge can flip with the last bit of a residual;
+    # the refined pose moves with it.
+    same_inliers = both & (q_c == q_h)
+    rel_err = float(np.abs(out.rel.cpu().numpy() - host.rel.numpy())[same_inliers].max(initial=0.0))
+    q_err = float(np.abs(q_c - q_h)[both].max(initial=0.0) * MAX_FEATURES)
+    phase("features", json.dumps({
+        "anchors": a, "candidates": int(cand.valid.sum()), "of_them_round": int(wave.valid.sum()),
+        "verify_loops_features_s": sec, "pairs_per_s": int(cand.valid.sum()) / sec,
+        "accepted_round": int(acc_c[:n_wave].sum()), "accepted_near": int(acc_c[n_wave:].sum()),
+        "accepted_cpu_same_draws": int(acc_h.sum()),
+        "pairs_same_correspondences_cuda_cpu": int(same.sum()),
+        "accept_differs_on_those": int((acc_c != acc_h)[same].sum()),
+        "accepted_both_on_those": int(both.sum()), "of_them_same_inliers": int(same_inliers.sum()),
+        "inliers_mean_accepted": float(q_c[acc_c].mean() * MAX_FEATURES) if acc_c.any() else 0.0,
+        "max_abs_inliers_diff_accepted": q_err,
+        "max_abs_rel_diff_accepted_same_inliers": rel_err, "card": smi}))
+    if acc_c[n_wave:].sum() < FEATURES_MIN_NEAR_ACCEPTED:
+        raise AssertionError(f"feature verification accepted {int(acc_c[n_wave:].sum())} near "
+                             f"pairs on the card, fewer than {FEATURES_MIN_NEAR_ACCEPTED}")
+    if same.mean() < 0.9 or (acc_c != acc_h)[same].sum() > 0.02 * same.sum() \
+            or same_inliers.sum() < 0.9 * acc_c[same].sum() or rel_err > 1e-3 or q_err > 1:
+        raise AssertionError("feature verification on the card disagrees with the CPU's")
+
+
 def main() -> None:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1044,6 +1367,12 @@ def main() -> None:
         # -- 7. localization -----------------------------------------------------
         localize_phase(cli, log_path, log, smi)
 
+        # -- 8.-11. the distributed topology, the other matchers and verifiers --
+        tcp_launches = tcp_phase(cli, K, log_path, log, smi, tmp.name)
+        matchers_phase(log, scans, smi)
+        slam_icp_phase(log, smi)
+        features_phase(log, smi)
+
     # Small input against the plain version on the CPU: the first 300
     # pairs. Float transcendentals differ between the two devices in the
     # last bit, which can flip which pair covers a bin at a segment end in
@@ -1054,7 +1383,7 @@ def main() -> None:
                         psm.match_psm(lms211, a.to("cpu"), b.to("cpu")),
                         f"{lms211.name} x300, plain on cpu")
 
-    # -- 8. the bundled intel-lab log, when present -------------------------
+    # -- 12. the bundled intel-lab log, when present ------------------------
     if INTEL_LOG.exists():
         run = cli.main(["odometry", str(INTEL_LOG), "--device", "cuda"])
         ate = float(run.ate.rmse)
@@ -1081,8 +1410,9 @@ def main() -> None:
         {
             "name": "psm_match_kernel (K1, batch entry: one block per pair)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": batch_launches + online_launches, "launches_pairwise": batch_launches,
-            "launches_online": online_launches, "launches_cli_slam": 0,
+            "launches": batch_launches + online_launches + tcp_launches,
+            "launches_pairwise": batch_launches, "launches_online": online_launches,
+            "launches_tcp": tcp_launches, "launches_cli_slam": 0,
             "max_abs_err": max(s["max_abs_err"] for s in stats),
             "ms": batch_ms, "plain_ms": batch_plain_ms,
             "bound_ms": batch_bound, "bound_by": batch_bound_by,

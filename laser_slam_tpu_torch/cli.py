@@ -15,6 +15,13 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
   error against the ground truth.
 - ``eval``: ATE / RPE of a trajectory file against a log's ground truth,
   as one JSON line.
+- ``serve``: the distributed SLAM server: accept one frontend stream over
+  TCP, run the incremental loop-closure backend, push pose corrections
+  back; ``--out`` writes the trajectory, ``--diag`` an ``.npz`` with the
+  loop bank and the round walls.
+- ``client``: the distributed SLAM frontend: odometry over a log, each
+  scan streamed to the server, its corrections applied; ``--out`` writes
+  the trajectory.
 
 ``--device`` picks where the tensors live: ``cuda`` by default, and the
 command fails when there is no CUDA device; ``--device cpu`` asks for the
@@ -252,6 +259,86 @@ def cmd_eval(args) -> dict:
     return out
 
 
+class ServeRun(NamedTuple):
+    """What ``serve`` computed, for callers of :func:`main`."""
+
+    backend: object      # runtime.tcp_slam.Backend after the session
+    port: int            # the port it listened on
+    seconds: float       # from the accepted connection to the last round
+
+
+def cmd_serve(args) -> ServeRun:
+    from .core.scan import PRESETS
+    from .native.api import ScanServer
+    from .runtime.slam import SlamConfig
+    from .runtime.tcp_slam import Backend
+
+    dev = _device(args.device)
+    model = PRESETS[args.model]
+    server = ScanServer(args.port)
+    try:
+        print(f"listening on :{server.port} ({model.name}, {dev})", flush=True)
+        conn = server.accept(timeout_ms=args.timeout * 1000)
+        if conn is None:
+            raise SystemExit(f"serve: no client connected within {args.timeout} s")
+        t0 = time.time()
+        be = Backend(conn, model, SlamConfig(), device=dev)
+        anchors = be.run()
+        dt = time.time() - t0
+        conn.close()
+    finally:
+        server.close()
+    print(f"session done: {be.poses.shape[0]} scans, {anchors.shape[0]} anchors, "
+          f"{len(be.round_walls)} rounds, {be.n_loops_total} loops, {dt:.1f}s, "
+          f"{conn.bytes_received} bytes in, {conn.bytes_sent} bytes out "
+          f"({be.n_updates_sent} pose updates)", flush=True)
+    if args.out:
+        np.savetxt(args.out, be.poses, fmt="%.6f")
+        print(f"trajectory -> {args.out}")
+    if args.diag:
+        bank = be.bank or {}
+        np.savez(args.diag, poses=be.poses, round_walls=np.asarray(be.round_walls),
+                 n_loops=be.n_loops_total, seconds=dt, bytes_in=conn.bytes_received,
+                 n_updates=be.n_updates_sent,
+                 bytes_out=conn.bytes_sent, **{f"bank_{k}": v for k, v in bank.items()})
+        print(f"diagnostics -> {args.diag}")
+    return ServeRun(be, server.port, dt)
+
+
+class ClientRun(NamedTuple):
+    """What ``client`` computed, for callers of :func:`main`."""
+
+    log: object          # io.carmen.CarmenLog
+    frontend: object     # runtime.tcp_slam.Frontend after the stream
+    seconds: np.ndarray  # [T] wall of each feed_scan
+    wall: float          # the whole stream
+
+
+def cmd_client(args) -> ClientRun:
+    from .native.api import ScanSocket
+    from .runtime.tcp_slam import Frontend
+
+    dev = _device(args.device)
+    log = _load(args.log, args.scans)
+    fe = Frontend(ScanSocket.connect(args.host, args.port), log.model, device=dev)
+    sec = np.zeros(log.n_scans)
+    t0 = time.time()
+    for k, r in enumerate(log.ranges):
+        t1 = time.perf_counter()
+        fe.feed_scan(r, stamp=float(log.timestamps[k]))
+        sec[k] = time.perf_counter() - t1
+    wall = time.time() - t0
+    fe.close()
+    print(f"{log.n_scans} scans streamed in {wall:.1f}s ({log.n_scans / wall:.1f} scans/s); "
+          f"per scan p50 {np.percentile(sec, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(sec, 99) * 1e3:.2f} ms; {fe.sock.bytes_sent} bytes sent; "
+          f"{fe.n_updates} pose updates applied")
+    if args.out:
+        np.savetxt(args.out, np.stack(fe.poses), fmt="%.6f")
+        print(f"trajectory -> {args.out}")
+    return ClientRun(log, fe, sec, wall)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="laser_slam_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -306,6 +393,23 @@ def main(argv=None):
                     help="torch device (default: cuda; fails without a CUDA "
                          "device unless cpu is asked for)")
     sp.set_defaults(fn=cmd_eval)
+
+    device_help = "torch device (default: cuda; fails without a CUDA device unless cpu is asked for)"
+    sp = sub.add_parser("serve", help="distributed SLAM backend server")
+    sp.add_argument("--port", type=int, default=6188, help="0: a free port, printed")
+    sp.add_argument("--model", default="LMS211")
+    sp.add_argument("--timeout", type=int, default=300, help="seconds to wait for a client")
+    sp.add_argument("--out", help="write the trajectory here")
+    sp.add_argument("--diag", help="write the loop bank and round walls (.npz) here")
+    sp.add_argument("--device", default=None, help=device_help)
+    sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("client", help="distributed SLAM frontend client")
+    common(sp)
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=6188)
+    sp.add_argument("--out", help="write the trajectory here")
+    sp.set_defaults(fn=cmd_client)
 
     args = p.parse_args(argv)
     return args.fn(args)

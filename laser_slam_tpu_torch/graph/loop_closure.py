@@ -1,14 +1,17 @@
 """Loop-closure detection: batched gating and batched verification (port
-of ``graph/loop_closure.py``, the part the correlative pipeline runs).
+of ``graph/loop_closure.py``).
 
 - geometric gates (center distance within a drift-sized radius, optional
   bounding-box overlap) are evaluated for **all** anchor pairs at once
   as a dense masked matrix;
-- candidate verification is one batch per chunk of candidates: an
-  exhaustive coarse correlative search against a wide reference cloud,
-  a per-peak ICP polish, a reciprocal check;
+- candidate verification is batched over the candidates: the init-free
+  correlative verifier (an exhaustive coarse correlative search against
+  a wide reference cloud, a per-peak ICP polish, a reciprocal check), or
+  trimmed point ICP from the current estimate (:func:`verify_loops`), or
+  feature RANSAC (:func:`verify_loops_features`);
 - pairwise-consistent-measurement pruning (PCM) keeps the loops whose
-  odometry cycles agree with enough others.
+  odometry cycles agree with enough others; :func:`consistency_prune` is
+  the simpler vote over implied pose corrections.
 """
 
 from __future__ import annotations
@@ -19,14 +22,19 @@ from typing import NamedTuple
 import torch
 
 from ..core import se2
+from ..core.scan import LaserModel, Scan
 from ..ops.correlative import build_likelihood_grid_points, correlative_top_peaks
-from ..ops.icp_points import PointIcpResult, match_icp_points
+from ..ops.icp_points import PointIcpResult, match_icp_points, scan_to_points
 
 Tensor = torch.Tensor
 
 LOOP_RADIUS = 2.0          # [m] constant-covariance search radius
 BBOX_OVERLAP_MIN = 0.4     # bounding-box overlap threshold
 MIN_INDEX_GAP = 2          # skip adjacent submaps
+MAX_TRANSFORM_DELTA = 1.5  # [m] bound on the correction vs the estimate
+MAX_ANGLE_DELTA = 0.8      # [rad] bound on the correction vs the estimate
+QUALITY_MIN = 0.45         # ICP goodness floor
+MATCH_ERR_MAX = 0.12       # [m] mean matched-point distance gate
 
 
 class LoopCandidates(NamedTuple):
@@ -51,6 +59,20 @@ class VerifiedLoops(NamedTuple):
 
 def _norm2(v: Tensor) -> Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def submap_bboxes(model: LaserModel, scans: Scan, poses: Tensor) -> tuple[Tensor, Tensor]:
+    """World-frame AABBs of each scan's valid beam endpoints under
+    ``poses [T, 3]``: ``(lo [T, 2], hi [T, 2])``."""
+    fi = model.bearings(scans.ranges.dtype, scans.ranges.device)
+    ok = ~scans.bad & (scans.ranges < model.max_range)
+    ang = poses[:, 2:3] + fi[None, :]
+    ex = poses[:, 0:1] + scans.ranges * torch.cos(ang)
+    ey = poses[:, 1:2] + scans.ranges * torch.sin(ang)
+    big = 1e9
+    lo = torch.stack([torch.where(ok, ex, big).amin(dim=1), torch.where(ok, ey, big).amin(dim=1)], -1)
+    hi = torch.stack([torch.where(ok, ex, -big).amax(dim=1), torch.where(ok, ey, -big).amax(dim=1)], -1)
+    return lo, hi
 
 
 def drift_radius_matrix(
@@ -152,6 +174,72 @@ def select_candidates(
     srt = torch.sort(score.reshape(-1), descending=True, stable=True)
     vals, idx = srt.values[:max_pairs], srt.indices[:max_pairs]
     return LoopCandidates(src=idx // a, dst=idx % a, valid=torch.isfinite(vals))
+
+
+def icp_both_ways(ref_pts, ref_ok, cur_pts, cur_ok, init, max_corr):
+    """Trimmed point ICP of every pair forward (``cur`` onto ``ref`` from
+    ``init``) and backward (``ref`` onto ``cur`` from its inverse), the
+    two directions as one batch of ``2C``: ``(fwd, bwd)``."""
+    c = init.shape[0]
+    res = match_icp_points(
+        torch.cat([ref_pts, cur_pts]), torch.cat([ref_ok, cur_ok]),
+        torch.cat([cur_pts, ref_pts]), torch.cat([cur_ok, ref_ok]),
+        torch.cat([init, se2.inverse(init)]), max_corr=max_corr)
+    return PointIcpResult(*(x[:c] for x in res)), PointIcpResult(*(x[c:] for x in res))
+
+
+def icp_loop_gates(valid: Tensor, init: Tensor, fwd: PointIcpResult, bwd: PointIcpResult) -> Tensor:
+    """Acceptance of ICP-verified loops: both legs converged, the legs
+    invert each other (a reciprocal cycle under 10 cm / 0.035 rad:
+    perceptual aliases rarely reciprocate), a correction vs the estimate
+    ``init`` within ``MAX_TRANSFORM_DELTA`` / ``MAX_ANGLE_DELTA``, and
+    the forward match's goodness and mean error."""
+    cycle = se2.compose(fwd.pose, bwd.pose)
+    reciprocal = (_norm2(cycle[:, :2]) < 0.10) & (
+        torch.abs(se2.normalize_angle(cycle[:, 2])) < 0.035)
+    delta = se2.relative(init, fwd.pose)
+    small_corr = (_norm2(delta[:, :2]) < MAX_TRANSFORM_DELTA) & (
+        torch.abs(se2.normalize_angle(delta[:, 2])) < MAX_ANGLE_DELTA)
+    return (valid & ~fwd.fail & ~bwd.fail & reciprocal & small_corr
+            & (fwd.goodness >= QUALITY_MIN) & (fwd.err < MATCH_ERR_MAX))
+
+
+def verify_loops(
+    model: LaserModel,
+    anchor_scans: Scan,
+    anchor_poses: Tensor,
+    cand: LoopCandidates,
+    max_corr: float = 1.5,
+) -> VerifiedLoops:
+    """Verify the candidates with free-form trimmed point ICP from the
+    current pose estimates, scan against scan, forward and backward in
+    one batch (:func:`icp_both_ways`, :func:`icp_loop_gates`)."""
+    ref_pts, ref_ok = scan_to_points(model, Scan(*(x[cand.src] for x in anchor_scans)))
+    cur_pts, cur_ok = scan_to_points(model, Scan(*(x[cand.dst] for x in anchor_scans)))
+    init = se2.relative(anchor_poses[cand.src], anchor_poses[cand.dst])
+    fwd, bwd = icp_both_ways(ref_pts, ref_ok, cur_pts, cur_ok, init, max_corr)
+    accept = icp_loop_gates(cand.valid, init, fwd, bwd)
+    rel = torch.where(accept[:, None], torch.nan_to_num(fwd.pose), 0.0)
+    return VerifiedLoops(src=cand.src, dst=cand.dst, rel=rel, quality=fwd.goodness, accept=accept)
+
+
+def consistency_prune(loops: VerifiedLoops, anchor_poses: Tensor) -> Tensor:
+    """Keep the loops consistent with enough others: each accepted loop
+    implies a correction of its dst anchor; loops whose corrections agree
+    (within 1 m / 0.3 rad) vote for each other, and a loop needs
+    ``min(accepted, 3)`` votes, itself included. Corrections are local to
+    a revisit, so an absolute quorum keeps every real cluster and drops
+    isolated spurious matches."""
+    pred_dst = se2.compose(anchor_poses[loops.src], loops.rel)
+    corr = torch.cat([
+        pred_dst[:, :2] - anchor_poses[loops.dst, :2],
+        se2.normalize_angle(pred_dst[:, 2:3] - anchor_poses[loops.dst, 2:3]),
+    ], dim=-1)
+    dt = _norm2(corr[:, None, :2] - corr[None, :, :2])
+    da = torch.abs(se2.normalize_angle(corr[:, None, 2] - corr[None, :, 2]))
+    agree = (dt < 1.0) & (da < 0.3) & loops.accept[None, :] & loops.accept[:, None]
+    votes = torch.sum(agree, dim=1)
+    return loops.accept & (votes >= torch.clamp(torch.sum(loops.accept), max=3))
 
 
 def pcm_cycle_errors(
@@ -350,6 +438,33 @@ def _verify_batch(
     return fwd, bwd, peak, peak_score, tri_good, tri_err, which
 
 
+def verify_loops_correlative(
+    submaps,
+    anchor_poses: Tensor,
+    cand: LoopCandidates,
+    cand_radius: Tensor | None = None,
+    wide_pts: Tensor | None = None,
+    wide_ok: Tensor | None = None,
+    **opts,
+) -> VerifiedLoops:
+    """Init-free verification of anchor-pair candidates: gathers each
+    pair's narrow submap clouds (and, with ``wide_pts``, the wide context
+    clouds of both anchors; else the narrow ones stand in) and the
+    estimate's relative pose, then runs :func:`verify_pairs_correlative`
+    with ``opts``."""
+    ref_pts, ref_ok = submaps.points[cand.src], submaps.valid[cand.src]
+    cur_pts, cur_ok = submaps.points[cand.dst], submaps.valid[cand.dst]
+    if wide_pts is not None:
+        refw_pts, refw_ok = wide_pts[cand.src], wide_ok[cand.src]
+        curw_pts, curw_ok = wide_pts[cand.dst], wide_ok[cand.dst]
+    else:
+        refw_pts, refw_ok, curw_pts, curw_ok = ref_pts, ref_ok, cur_pts, cur_ok
+    odo_rel = se2.relative(anchor_poses[cand.src], anchor_poses[cand.dst])
+    return verify_pairs_correlative(
+        refw_pts, refw_ok, ref_pts, ref_ok, curw_pts, curw_ok, cur_pts, cur_ok,
+        odo_rel, cand.valid, cand_radius, src=cand.src, dst=cand.dst, **opts)
+
+
 def verify_pairs_correlative(
     refw_pts: Tensor,
     refw_ok: Tensor,
@@ -516,3 +631,55 @@ def verify_pairs_correlative(
         src=src, dst=dst, rel=rel, quality=torch.nan_to_num(fwd.goodness), accept=accept,
         tentative=tentative, diag=gates, cov=torch.nan_to_num(fwd.cov),
     )
+
+
+
+def _verify_features(model, anchor_scans, anchor_poses, cand, draws) -> VerifiedLoops:
+    from ..features import describe_features, detect_features, match_features_at
+
+    feats = detect_features(model, anchor_scans)
+    descs = describe_features(model, anchor_scans, feats)
+    pair = (type(feats)(*(x[cand.src] for x in feats)), descs[cand.src],
+            type(feats)(*(x[cand.dst] for x in feats)), descs[cand.dst])
+    res = match_features_at(*pair, *draws(*pair))
+    init = se2.relative(anchor_poses[cand.src], anchor_poses[cand.dst])
+    delta = se2.relative(init, res.pose)
+    small_corr = (_norm2(delta[:, :2]) < 2.0 * MAX_TRANSFORM_DELTA) & (
+        torch.abs(se2.normalize_angle(delta[:, 2])) < MAX_ANGLE_DELTA)
+    quality = res.n_inliers.to(res.pose.dtype) / float(feats.valid.shape[-1])
+    accept = cand.valid & ~res.fail & small_corr & (res.n_inliers >= 8)
+    rel = torch.where(accept[:, None], torch.nan_to_num(res.pose), 0.0)
+    return VerifiedLoops(src=cand.src, dst=cand.dst, rel=rel, quality=quality, accept=accept)
+
+
+def verify_loops_features(
+    model: LaserModel,
+    anchor_scans: Scan,
+    anchor_poses: Tensor,
+    cand: LoopCandidates,
+    generator: torch.Generator,
+) -> VerifiedLoops:
+    """Feature-RANSAC loop verification, a batched alternative to
+    :func:`verify_loops`: interest points and descriptors of every anchor
+    once, then each candidate pair RANSAC-matched with hypotheses drawn
+    from ``generator``. It needs no initial pose, so it validates loops
+    whose estimate drifted beyond ICP's basin; the estimate only bounds
+    the correction (twice ``MAX_TRANSFORM_DELTA``). ``quality`` is the
+    inlier fraction of the feature budget."""
+    from ..features.ransac import candidate_correspondences, draw_hypotheses
+
+    return _verify_features(model, anchor_scans, anchor_poses, cand, lambda *pair: draw_hypotheses(
+        candidate_correspondences(*pair)[2], generator))
+
+
+def verify_loops_features_at(
+    model: LaserModel,
+    anchor_scans: Scan,
+    anchor_poses: Tensor,
+    cand: LoopCandidates,
+    i1: Tensor,
+    i2: Tensor,
+) -> VerifiedLoops:
+    """:func:`verify_loops_features` with given hypothesis indices ``i1,
+    i2 [C, H]`` (its deterministic half)."""
+    return _verify_features(model, anchor_scans, anchor_poses, cand, lambda *pair: (i1, i2))

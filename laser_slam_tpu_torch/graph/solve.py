@@ -272,6 +272,7 @@ def optimize(
     g: PoseGraph,
     max_iters: int = MAX_GN_ITERS,
     solver: str = "auto",
+    info: dict | None = None,
 ) -> tuple[PoseGraph, Tensor]:
     """Levenberg-Marquardt with accept/reject and adaptive λ; returns
     ``(graph, final weighted chi²)``.
@@ -283,7 +284,8 @@ def optimize(
 
     The loop runs on the host: λ, the iteration and stall counters live
     there (λ in float32), and each iteration reads two flags from the
-    device in one transfer.
+    device in one transfer. With a dict ``info``, the counts are left in
+    it: ``iters`` (iterations run) and ``steps`` (steps accepted).
     """
     if solver == "auto":
         solver = "cg" if g.poses.shape[0] > DENSE_SOLVER_MAX_V else "chol"
@@ -291,7 +293,7 @@ def optimize(
 
     chi_cur = weighted_chi2(g)
     lam = np.float32(1e-4)
-    it = stall = 0
+    it = stall = steps = 0
     while it < max_iters and stall < 3:
         dx, _ = solve(g, float(lam))
         cand = g._replace(poses=_apply(g, dx))
@@ -305,12 +307,15 @@ def optimize(
         accept, improved = torch.stack([accept_t, improved_t]).tolist()
         if accept:
             g = cand
+            steps += 1
             lam = max(lam * np.float32(0.3), np.float32(1e-6))
         else:
             lam = lam * np.float32(5.0)
         chi_cur = chi_next
         stall = 0 if improved else stall + 1
         it += 1
+    if info is not None:
+        info.update(iters=it, steps=steps)
     return g, chi_cur
 
 
@@ -419,14 +424,15 @@ def linear_initialize(g: PoseGraph) -> PoseGraph:
 
 
 def optimize_with_init(
-    g: PoseGraph, max_iters: int = MAX_GN_ITERS
+    g: PoseGraph, max_iters: int = MAX_GN_ITERS, info: dict | None = None
 ) -> tuple[PoseGraph, Tensor]:
     """Linear initialization followed by LM polish, from whichever start
     scores better on the RAW chi²: DCS scores a start that leaves loop
     residuals huge as *good* (it annihilates exactly the unexplained
     edges), so a weighted comparison would reject every loop-closing
     initialization in favor of drifted odometry. A failed (non-finite)
-    linear solve never wins."""
+    linear solve never wins. ``info`` as for :func:`optimize`."""
     g_lin = linear_initialize(g)
     better = (chi2(g_lin) < chi2(g)) & torch.all(torch.isfinite(g_lin.poses))
-    return optimize(g._replace(poses=torch.where(better, g_lin.poses, g.poses)), max_iters)
+    return optimize(g._replace(poses=torch.where(better, g_lin.poses, g.poses)), max_iters,
+                    info=info)

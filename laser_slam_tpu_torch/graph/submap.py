@@ -1,5 +1,5 @@
 """Submap hierarchy: keyframe groups reduced to fixed-shape local clouds
-(port of ``graph/submap.py``, the part the correlative pipeline runs).
+(port of ``graph/submap.py``).
 
 - **reduction**: all beam endpoints of a group are expressed in the
   group-anchor frame and deduplicated at submap resolution by voxel key
@@ -7,7 +7,8 @@
   points per submap; batched over the submaps.
 - **wide clouds**: submaps ``i-wing..i+wing`` merged into anchor ``i``'s
   frame, the local context loop verification matches against.
-- **bounding boxes** under the current anchor poses.
+- **bounding boxes** under the current anchor poses;
+- **verification** of loop candidates submap against submap.
 
 Everything is fixed-shape: groups with fewer valid points carry masks.
 """
@@ -22,6 +23,7 @@ from torch.profiler import record_function
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
+from .loop_closure import LoopCandidates, VerifiedLoops, icp_both_ways, icp_loop_gates
 
 Tensor = torch.Tensor
 
@@ -159,3 +161,21 @@ def submap_bboxes(submaps: Submaps, anchor_poses: Tensor) -> tuple[Tensor, Tenso
     lo = torch.where(ok, w, 1e9).amin(dim=1)
     hi = torch.where(ok, w, -1e9).amax(dim=1)
     return lo, hi
+
+
+def verify_loops_submap(
+    submaps: Submaps,
+    anchor_poses: Tensor,
+    cand: LoopCandidates,
+    max_corr: float = 1.5,
+) -> VerifiedLoops:
+    """Verify loop candidates submap against submap with trimmed point
+    ICP from the current estimates, forward and backward in one batch,
+    under the gates of scan-level verification
+    (``loop_closure.icp_loop_gates``)."""
+    init = se2.relative(anchor_poses[cand.src], anchor_poses[cand.dst])
+    fwd, bwd = icp_both_ways(submaps.points[cand.src], submaps.valid[cand.src],
+                             submaps.points[cand.dst], submaps.valid[cand.dst], init, max_corr)
+    accept = icp_loop_gates(cand.valid, init, fwd, bwd)
+    rel = torch.where(accept[:, None], torch.nan_to_num(fwd.pose), 0.0)
+    return VerifiedLoops(src=cand.src, dst=cand.dst, rel=rel, quality=fwd.goodness, accept=accept)

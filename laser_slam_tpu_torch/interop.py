@@ -1,9 +1,10 @@
 """State carried between this port and ``laser_slam_tpu``.
 
 The system has no weights; its state is the laser model, scans, poses,
-grids, submaps, loop candidates and verified loops, the pose graph, the
-loop bank, the SLAM configuration, the filter and particle states, the
-odometry carry and the incremental backend's persistent state. These
+grids, submaps, loop candidates and verified loops (with their quality),
+the pose graph, the loop bank, the SLAM configuration, the filter and
+particle states, the odometry carry, PL-ICP results, feature sets and
+the incremental backend's persistent state. These
 helpers move them through plain python / numpy, so neither package
 imports the other. A whole online session crosses through its checkpoint
 file: ``OnlineSlam.save`` of either package writes the keys that
@@ -117,28 +118,34 @@ def config_to_fields(cfg: SlamConfig) -> dict:
 
 
 def named_state_from_numpy(cls, fields: dict, device=None):
-    """A port ``UkfState``, ``ParticleState`` or odometry carry
-    (``ops.odometry._OdoCarry``) from the field dict of its JAX namesake
-    (``x._asdict()``; a carry's two scans as ``(ranges, bad, seg)``
-    tuples or ``Scan``s of arrays)."""
+    """A port ``UkfState``, ``ParticleState``, odometry carry
+    (``ops.odometry._OdoCarry``), ``PlIcpResult`` or ``FeatureSet`` from
+    the field dict of its JAX namesake (``x._asdict()``; a carry's two
+    scans as ``(ranges, bad, seg)`` tuples or ``Scan``s of arrays).
+    Floating fields become float32; integer and boolean fields keep
+    their type."""
+    from .features.detector import FeatureSet
     from .fusion.ukf import UkfState
     from .localization.particle_filter import ParticleState
     from .ops.odometry import _OdoCarry
+    from .ops.plicp import PlIcpResult
 
-    if cls not in (UkfState, ParticleState, _OdoCarry):
+    if cls not in (UkfState, ParticleState, _OdoCarry, PlIcpResult, FeatureSet):
         raise TypeError(f"named_state_from_numpy: {cls!r} is not a named state of the port")
 
     def leaf(v):
         if isinstance(v, tuple):                       # a scan
             return scan_from_numpy(*v, device=device)
-        return torch.tensor(np.asarray(v, np.float32), device=device)
+        a = np.asarray(v)
+        return torch.tensor(a.astype(np.float32) if a.dtype.kind == "f" else a, device=device)
 
     return cls(**{k: leaf(v) for k, v in fields.items()})
 
 
 def named_state_to_numpy(state) -> dict:
-    """The field dict of a ``UkfState``, ``ParticleState`` or odometry
-    carry as numpy arrays (a carry's scans as ``(ranges, bad, seg)``)."""
+    """The field dict of a ``UkfState``, ``ParticleState``, odometry
+    carry, ``PlIcpResult`` or ``FeatureSet`` as numpy arrays (a carry's
+    scans as ``(ranges, bad, seg)``)."""
     return {k: scan_to_numpy(v) if isinstance(v, Scan) else v.detach().cpu().numpy()
             for k, v in state._asdict().items()}
 

@@ -6,7 +6,8 @@
   chain is one kernel launch), then a batched ±π correlative re-match
   of the flagged steps and a re-chaining.
 - :func:`odometry_pairwise` — all consecutive pairs matched in one
-  batch, then a log-depth pose chain.
+  batch (PSM, or polar ICP with ``use_icp``), then a log-depth pose
+  chain.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..core import se2
 from ..core.scan import LaserModel, Scan
 from .correlative import match_correlative
 from .cuda.psm_kernel import match_psm_fused, odometry_chain_fused
+from .icp import match_icp
 from .psm import error_index
 
 Tensor = torch.Tensor
@@ -288,12 +290,13 @@ def odometry_keyframe(
     )
 
 
-def odometry_pairwise(model: LaserModel, scans: Scan) -> OdometryResult:
-    """Batched consecutive-pair odometry: all ``T-1`` PSM matches in one
-    fused launch, then a log-depth pose chain."""
+def odometry_pairwise(model: LaserModel, scans: Scan, use_icp: bool = False) -> OdometryResult:
+    """Batched consecutive-pair odometry: all ``T-1`` matches in one batch
+    (PSM: one fused launch; polar ICP with ``use_icp``), then a log-depth
+    pose chain."""
     ref = Scan(*(x[:-1] for x in scans))
     cur = Scan(*(x[1:] for x in scans))
-    res = match_psm_fused(model, ref, cur)
+    res = match_icp(model, ref, cur) if use_icp else match_psm_fused(model, ref, cur)
     rel = torch.where(res.fail[:, None], 0.0, res.pose)
     poses = se2.chain(rel)
     dev = poses.device

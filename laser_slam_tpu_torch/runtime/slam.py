@@ -1,5 +1,4 @@
-"""Offline SLAM over a whole log (port of ``runtime/slam.py``, the
-correlative pipeline).
+"""Offline SLAM over a whole log (port of ``runtime/slam.py``).
 
 ``slam_offline`` runs keyframe odometry on the device, reduces the scans
 to submaps, then a fixed number of loop-closure waves. Each wave
@@ -8,6 +7,11 @@ proposes candidate pairs for all anchors at once (drift-aware pose gate
 search + ICP polish, batched over the chunk), banks the verified loops
 and runs a robust pose-graph solve over the chain and the bank. The
 trajectory is then re-attached to the solved anchors.
+
+With ``use_correlative=False`` the waves are instead ICP-verified rounds
+(:func:`_loop_round`) from the current estimate, scan against scan or
+(``use_submaps``) submap against submap, at a search radius that doubles
+every round.
 
 Anchor spacing is 10 scans per submap; the edge information values are
 50 for sequential edges and 10 for loops.
@@ -28,16 +32,20 @@ from ..core.device import resolve_device
 from ..core.scan import LaserModel, Scan
 from ..graph.loop_closure import (
     VerifiedLoops,
+    consistency_prune,
     drift_radius_matrix,
     gate_matrix,
     pcm_cycle_errors,
     pcm_prune,
     select_candidates,
+    submap_bboxes,
+    verify_loops,
     verify_pairs_correlative,
 )
 from ..graph.place_recognition import signature_gate, submap_signatures
 from ..graph.solve import PoseGraph, optimize, optimize_with_init
-from ..graph.submap import Submaps, build_submaps, wide_clouds
+from ..graph.submap import Submaps, build_submaps, verify_loops_submap, wide_clouds
+from ..graph.submap import submap_bboxes as merged_bboxes
 from ..ops.odometry import odometry_keyframe
 from ..ops.preprocess import preprocess
 
@@ -587,6 +595,90 @@ def run_correlative_rounds(
     return anchor_poses, n_loops, chi, bank, tried
 
 
+def _loop_round(
+    model: LaserModel,
+    cfg: SlamConfig,
+    anchor_scans: Scan,
+    anchor_poses: Tensor,
+    rel_seq: Tensor,
+    radius: float | None = None,
+    seq_weight: Tensor | None = None,
+    submaps: Submaps | None = None,
+):
+    """One gate → verify → prune → solve round over the anchors; returns
+    ``(anchor poses, number of loops kept, chi²)``. ``radius`` is the
+    search radius and the verifier's starting correspondence gate
+    (default ``cfg.loop_radius``); ``seq_weight [A-1]`` scales the
+    sequential edges' information. With ``submaps``, gating and
+    verification run on the merged keyframe-group clouds instead of
+    single anchor scans."""
+    if radius is None:
+        radius = cfg.loop_radius
+    if submaps is not None:
+        bbox_lo, bbox_hi = merged_bboxes(submaps, anchor_poses)
+    else:
+        bbox_lo, bbox_hi = submap_bboxes(model, anchor_scans, anchor_poses)
+    gate = gate_matrix(anchor_poses[:, :2], bbox_lo, bbox_hi, radius=radius)
+    cand = select_candidates(gate, anchor_poses[:, :2], cfg.max_loops)
+    if submaps is not None:
+        loops = verify_loops_submap(submaps, anchor_poses, cand, max_corr=radius)
+    else:
+        loops = verify_loops(model, anchor_scans, anchor_poses, cand, max_corr=radius)
+    keep = consistency_prune(loops, anchor_poses)
+
+    a, c = anchor_poses.shape[0], cand.src.shape[0]
+    dtype, dev = anchor_poses.dtype, anchor_poses.device
+    seq_i = torch.arange(a - 1, device=dev)
+    if seq_weight is None:
+        seq_weight = torch.ones(a - 1, dtype=dtype, device=dev)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    g = PoseGraph(
+        poses=anchor_poses,
+        v_active=torch.ones(a, dtype=torch.bool, device=dev),
+        i=torch.cat([seq_i, loops.src]),
+        j=torch.cat([seq_i + 1, loops.dst]),
+        meas=torch.cat([rel_seq, loops.rel]),
+        info=torch.cat([eye * INFO_ADJ * seq_weight[:, None, None],
+                        eye * INFO_LOOP * loops.quality[:, None, None]]),
+        e_active=torch.cat([torch.ones(a - 1, dtype=torch.bool, device=dev), keep]),
+        kernel=torch.cat([torch.zeros(a - 1, dtype=torch.int64, device=dev),     # seq: Huber
+                          torch.ones(c, dtype=torch.int64, device=dev)]),        # loops: DCS
+    )
+    g_opt, chi = optimize(g, cfg.gn_iters)
+    return g_opt.poses, torch.sum(keep), chi
+
+
+def run_icp_rounds(
+    model: LaserModel,
+    cfg: SlamConfig,
+    anchor_scans: Scan,
+    anchor_poses: Tensor,
+    rel_seq: Tensor,
+    seq_weight: Tensor,
+    submaps: Submaps | None = None,
+    timing: dict | None = None,
+):
+    """``cfg.rounds`` ICP-verified rounds (:func:`_loop_round`) at an
+    escalating search radius, ``cfg.loop_radius · 2^r``: early rounds
+    close tight, reliable loops; later ones, with the drift already
+    reduced, reach farther. Returns ``(anchor poses, loops kept in the
+    last round, chi²)``; with a ``timing`` dict, each round's seconds are
+    appended to ``timing["rounds"]``."""
+    dev = anchor_poses.device
+    n_loops = torch.zeros((), dtype=torch.int64, device=dev)
+    chi = torch.zeros((), dtype=anchor_poses.dtype, device=dev)
+    for r in range(cfg.rounds):
+        t0 = time.perf_counter()
+        radius = float(np.float32(cfg.loop_radius * (2.0 ** r)))     # a float32 value
+        anchor_poses, n_loops, chi = _loop_round(
+            model, cfg, anchor_scans, anchor_poses, rel_seq, radius, seq_weight, submaps)
+        if timing is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timing.setdefault("rounds", []).append(time.perf_counter() - t0)
+    return anchor_poses, n_loops, chi
+
+
 def slam_offline(
     model: LaserModel,
     ranges,
@@ -599,15 +691,11 @@ def slam_offline(
 
     Runs on ``device``: ``cuda`` unless the caller names another, and
     then it raises where there is no CUDA device; ``device="cpu"`` asks
-    for the CPU. With a ``diag`` dict, the loop bank, the anchor poses
-    before and after, the tried matrix, the sequential weights and the
-    seconds of every stage (``diag["timing"]``) are left in it.
+    for the CPU. With a ``diag`` dict, the seconds of every stage
+    (``diag["timing"]``) are left in it and, on the correlative branch,
+    the loop bank, the anchor poses before and after, the tried matrix
+    and the sequential weights.
     """
-    if not cfg.use_correlative:
-        raise NotImplementedError(
-            "slam_offline: only the correlative pipeline (use_correlative=True) is "
-            "ported; the ICP-verified loop rounds (_loop_round) are not (ROADMAP.md, "
-            "item 5.7)")
     dev = resolve_device(device)
     timing = diag.setdefault("timing", {}) if diag is not None else None
     ranges = torch.as_tensor(ranges, dtype=torch.float32).to(dev)
@@ -621,22 +709,28 @@ def slam_offline(
         return time.perf_counter()
 
     t0 = time.perf_counter()
-    (scans, odo_poses, anchor_idx, _anchor_scans, anchor_poses, rel_seq,
+    (scans, odo_poses, anchor_idx, anchor_scans, anchor_poses, rel_seq,
      seq_weight, block_id) = _frontend(model, cfg, ranges, timestamps)
     t0 = lap("frontend", t0)
-    submaps = build_submaps(model, scans, odo_poses, cfg.anchor_stride, cfg.submap_points)
-    lap("submaps", t0)
+    submaps = None
+    if cfg.use_submaps or cfg.use_correlative:
+        submaps = build_submaps(model, scans, odo_poses, cfg.anchor_stride, cfg.submap_points)
+        t0 = lap("submaps", t0)
 
     odo_anchor_poses = anchor_poses
-    anchor_poses, n_loops, chi, bank, tried = run_correlative_rounds(
-        cfg, submaps, anchor_poses, rel_seq, seq_weight,
-        odo_anchor_poses=odo_anchor_poses, block_id=block_id, timing=timing,
-    )
+    if cfg.use_correlative:
+        anchor_poses, n_loops, chi, bank, tried = run_correlative_rounds(
+            cfg, submaps, anchor_poses, rel_seq, seq_weight,
+            odo_anchor_poses=odo_anchor_poses, block_id=block_id, timing=timing,
+        )
+    else:
+        anchor_poses, n_loops, chi = run_icp_rounds(
+            model, cfg, anchor_scans, anchor_poses, rel_seq, seq_weight, submaps, timing=timing)
     t0 = time.perf_counter()
     final = _reattach(cfg, anchor_poses, odo_poses)
     lap("reattach", t0)
 
-    if diag is not None:
+    if diag is not None and cfg.use_correlative:
         diag["bank"] = {k: np.array(v) for k, v in bank.items()}
         diag["anchor_poses"] = anchor_poses.cpu().numpy()
         diag["odo_anchor_poses"] = odo_anchor_poses.cpu().numpy()

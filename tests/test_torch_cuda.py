@@ -402,3 +402,45 @@ def test_systematic_resample_on_the_card_against_the_cpu(cuda):
     i_cpu, i_card = on_cpu.poses[:, 0].numpy(), on_card.poses[:, 0].cpu().numpy()
     differ = i_cpu != i_card
     assert differ.mean() < 0.01 and np.abs(i_cpu - i_card).max() <= 1
+
+
+def test_icp_matchers_on_the_card_against_the_cpu(cuda):
+    """Polar ICP and PL-ICP of 64 room pairs on the card and on the CPU:
+    the same fail flags; a match may settle a few mm apart where the last
+    bit of ``atan2`` / ``cos`` flips a bin of the first projection, so the
+    poses are held at the median (1 mm) and at the worst pair (5 cm)."""
+    from laser_slam_tpu_torch.ops import icp, plicp
+
+    model = S.LMS211
+    ref, cur, rel = pairs(model, 64, 26, cuda)
+    for fn in (icp.match_icp, plicp.match_plicp):
+        info_card, info_cpu = {}, {}
+        card = fn(model, ref, cur, info=info_card)
+        host = fn(model, ref.to("cpu"), cur.to("cpu"), info=info_cpu)
+        assert card.pose.device.type == "cuda"
+        np.testing.assert_array_equal(card.fail.cpu().numpy(), host.fail.numpy())
+        d = np.abs(card.pose.cpu().numpy() - host.pose.numpy()).max(axis=1)
+        assert np.median(d) < 1e-3 and d.max() < 5e-2, (fn.__name__, np.median(d), d.max())
+        assert int(info_card["iters"].max()) >= 1
+        # The matches recover the synthetic motion.
+        ok = ~host.fail.numpy()
+        err = np.abs(host.pose.numpy()[ok, :2] - rel[ok, :2]).max(axis=1)
+        assert np.median(err) < 0.02
+
+
+def test_loopback_on_cuda(cuda):
+    """The distributed topology folded into one process over localhost
+    TCP on the card: the box loop closes, the trajectory is finite, and
+    the frontend launched K1's two-pair entry once a scan."""
+    import dataclasses
+
+    from laser_slam_tpu_torch.runtime import slam, tcp_slam
+
+    model = S.LaserModel(**synthetic_log.BOX_LOOP_MODEL)
+    cfg = dataclasses.replace(slam.SlamConfig(), submap_points=256, wide_points=512, max_loops=64,
+                              verify_chunk=16, n_theta=24, n_peaks=4, per_dst=6, search_xy=3.0,
+                              gn_iters=10)
+    before = psm_kernel.match_psm_fused.launches
+    traj, loops = tcp_slam.run_loopback(model, synthetic_log.box_loop_scans(170), cfg)
+    assert psm_kernel.match_psm_fused.launches - before == 169
+    assert traj.shape == (170, 3) and np.isfinite(traj).all() and loops >= 1

@@ -149,7 +149,27 @@ def test_cg_step_matches_dense_step():
     np.testing.assert_allclose(float(chi_cg), float(chi), rtol=1e-6)
 
 
+def jax_lm_steps(fn, g, max_iters):
+    """The number of LM steps JAX's ``fn(g, max_iters)`` accepted: its
+    result with a budget of k iterations (a traced argument, one compile)
+    changes from k-1 to k exactly when iteration k accepted a step."""
+    run = jax.jit(fn)
+    outs = [np.asarray(run(g, k)[0].poses) for k in range(max_iters + 1)]
+    return sum(not np.array_equal(a, b) for a, b in zip(outs, outs[1:]))
+
+
 def test_linear_initialize_and_optimize_with_init():
+    """LAGO's linear solves are held to JAX's at 1e-3. The LM polish after
+    them ends in a flat valley of the cost: its last steps lower χ² by
+    about 1e-6 while moving poses by mm, and LM stops once three steps in
+    a row lower it by less than 1e-5. Whether a sub-threshold step is
+    accepted (χ² lower by round-off) depends on the machine's BLAS and
+    LAPACK, so the two packages may stop a step apart with poses 2 mm
+    apart. Hence the poses are held to JAX's at 1e-3 only when both
+    accepted the same number of steps; otherwise each side's χ² to the
+    other's, both to the ground truth, and each side's end to be a
+    stationary point within the stop rule: LM restarted there lowers χ²
+    by less than three sub-threshold steps can."""
     fields, gt = loop_graph(seed=5, n_bad=1)
     # A start LM cannot leave: the second lap turned by 2.5 rad about its start.
     half = fields["poses"].shape[0] // 2
@@ -163,11 +183,22 @@ def test_linear_initialize_and_optimize_with_init():
     got = tsolve.linear_initialize(tg)
     np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses), atol=POSE_ATOL)
     want, jchi = jax.jit(lambda g: jsolve.optimize_with_init(g, 20))(jg)
-    got, chi = tsolve.optimize_with_init(tg, 20)
-    np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses), atol=POSE_ATOL)
+    lm = {}
+    got, chi = tsolve.optimize_with_init(tg, 20, info=lm)
+    steps = lm["steps"]
+    jsteps = jax_lm_steps(jsolve.optimize_with_init, jg, 20)
     np.testing.assert_allclose(float(chi), float(jchi), rtol=CHI2_RTOL)
-    d = got.poses.numpy() - gt
-    assert np.abs(d[:, :2]).max() < 0.5 and np.abs(jse2.np_normalize_angle(d[:, 2])).max() < 0.2
+    if steps == jsteps:
+        np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses), atol=POSE_ATOL)
+    else:
+        for end in (got.poses, torch.from_numpy(np.array(want.poses))):
+            g_end = tg._replace(poses=end)
+            before = float(tsolve.weighted_chi2(g_end))
+            after = float(tsolve.optimize(g_end, 20)[1])
+            assert before - after < 3 * tsolve.CHI2_REL_TOL, (steps, jsteps, before, after)
+    for poses in (got.poses.numpy(), np.asarray(want.poses)):
+        d = poses - gt
+        assert np.abs(d[:, :2]).max() < 0.5 and np.abs(jse2.np_normalize_angle(d[:, 2])).max() < 0.2
     # State goes back as it came.
     back = interop.state_to_numpy(got)
     assert back["i"].dtype == np.int32 and np.array_equal(back["i"], fields["i"])

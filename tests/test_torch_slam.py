@@ -247,9 +247,31 @@ def test_slam_offline_closes_the_loop_on_the_cpu(log_file):
     assert {"frontend", "submaps", "reattach"} <= set(diag["timing"])
 
 
-def test_slam_offline_does_not_fall_through_to_the_other_branch(log):
-    with pytest.raises(NotImplementedError, match="5.7"):
-        tslam.slam_offline(TMODEL, log[0][:20], tslam.SlamConfig(use_correlative=False), device="cpu")
+def test_slam_offline_does_not_fall_through_to_the_other_branch(log, monkeypatch):
+    """Each branch runs its own rounds: ``use_correlative=False`` one ICP-
+    verified ``_loop_round`` per round at a doubling radius and no
+    correlative wave, the default the waves and no ``_loop_round``. (The
+    ICP branch is held to JAX's in ``test_torch_loop_rounds.py``.)"""
+    calls = {"round": [], "waves": 0}
+    loop_round, waves = tslam._loop_round, tslam.run_correlative_rounds
+
+    def counting_round(*args):
+        calls["round"].append(args[5])
+        return loop_round(*args)
+
+    def counting_waves(*args, **kw):
+        calls["waves"] += 1
+        return waves(*args, **kw)
+
+    monkeypatch.setattr(tslam, "_loop_round", counting_round)
+    monkeypatch.setattr(tslam, "run_correlative_rounds", counting_waves)
+    cfg = tslam.SlamConfig(use_correlative=False, rounds=3, max_loops=16)
+    res = tslam.slam_offline(TMODEL, log[0][:60], cfg, device="cpu")
+    assert calls == {"round": [2.0, 4.0, 8.0], "waves": 0}
+    assert res.poses.shape == (60, 3) and bool(torch.isfinite(res.poses).all())
+    tslam.slam_offline(TMODEL, log[0][:60], dataclasses.replace(cfg, use_correlative=True, rounds=1,
+                                                                cov_rounds=0), device="cpu")
+    assert calls == {"round": [2.0, 4.0, 8.0], "waves": 1}
 
 
 def test_cli_slam_defaults_to_cuda_and_raises_without_one(log_file, monkeypatch):

@@ -168,12 +168,13 @@ def test_port_imports_without_jax():
         "utils.checkpoint", "utils.timestamp", "utils.profiling", "core.device",
         "mapping.incremental", "fusion.ukf", "runtime.backend", "runtime.online",
         "runtime.facade", "localization.raycast", "localization.particle_filter",
-        "nav.controller")} <= set(names)
+        "nav.controller", "native.api", "runtime.tcp_slam", "ops.icp", "ops.plicp",
+        "features.detector", "features.descriptor", "features.ransac")} <= set(names)
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['laser_slam_tpu'] = None\n"
         f"import importlib\nfor n in {names!r} + ['chip_smoke']:\n    importlib.import_module(n)\n"
         "from laser_slam_tpu_torch import cli\n"
-        "for sub in ('slam', 'odometry', 'draw', 'localize', 'eval'):\n"
+        "for sub in ('slam', 'odometry', 'draw', 'localize', 'eval', 'serve', 'client'):\n"
         "    try:\n        cli.main([sub, '--help'])\n"
         "    except SystemExit as e:\n        assert e.code == 0\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v)\n"
@@ -181,7 +182,7 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(names) >= 38
+    assert len(names) >= 47
     for path in [*(ROOT / "laser_slam_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
                  ROOT / "tools" / "synthetic_log.py"]:
         text = path.read_text()
