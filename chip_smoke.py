@@ -68,7 +68,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
 11. feature-RANSAC loop verification (``[features]``) over one round's
     candidates and the pairs of neighbouring anchors, the card against
     the CPU under the same draws;
-12. the bundled intel-lab log, when present at the repo's reference-data
+12. the robot application path (``[robot]``): ``RobotController`` in
+    mapping mode with the floor grid and its portal, fed 600 scans of the
+    log flat out with ``control_tick`` after each and a localhost console
+    (PING, GOTO, POSE, STATE, MAP); K1's two-pair entry once a scan; its
+    local map against the CPU's; one plan's time and device operations.
+    Then a closed drive of ``TaskEngine`` on the card (scans ray-cast at
+    the true pose), held to reach its goal outside the inflated
+    obstacles, under the zones' speed caps, its first plan and its dodges
+    the CPU's;
+13. the bundled intel-lab log, when present at the repo's reference-data
     location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
 
 The last three lines of stdout are the kernels' JSON
@@ -153,6 +162,29 @@ REPLAY_PERIOD = 0.1
 # differs (ATen's kernels against the chain kernel's registers), float32
 # round-off carried along 2671 steps.
 CHAIN_ATOL = 1e-3
+# [robot]: the robot application path at full width. RobotController in
+# mapping mode is fed the log's first ROBOT_SCANS scans flat out, a console
+# on localhost sends its commands after scan ROBOT_CONSOLE_AT, the GOTO goal
+# is the log's pose nearest ROBOT_GOTO_WORLD (room 2; the log starts in the
+# hall). The floor grid is the whole synthetic floor at 0.05 m with a 0.5 m
+# margin. The card's local map is held to the CPU's fed the same scans and
+# poses: the same cells (refmath rounds alike on both), sums of atomic adds
+# in another order.
+ROBOT_SCANS = 600
+ROBOT_CONSOLE_AT = 20
+ROBOT_GOTO_WORLD = (9.5, 9.8)
+ROBOT_GRID_RES, ROBOT_GRID_MARGIN = 0.05, 0.5
+ROBOT_MAP_ATOL = 1e-4
+# [robot] drive: a start in room 1, a leg through its doorway into the hall
+# and one along the hall to below room 3's doorway, each snapped to the log's
+# nearest ground-truth pose. Each leg passes its doorway head-on: at its
+# default 0.6 m look-ahead, pure pursuit cuts a path's corner by up to
+# ~0.3 m, so a leg that turns around a door jamb (room 1 → room 2) brings
+# the robot within its 0.3 m radius of the jamb and ends FAILED, in the JAX
+# package as in the port (tests/test_torch_app.py holds both to the same
+# ticks). DRIVE_DT is the control period.
+DRIVE_LEGS_WORLD = ((4.2, 9.8), (3.5, 6.0), (14.5, 6.0))
+DRIVE_MAX_TICKS, DRIVE_DT, DRIVE_DODGE_EVERY = 1500, 0.1, 50
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth. The bounds below are stated against them.
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -1110,6 +1142,229 @@ def features_phase(log, smi):
         raise AssertionError("feature verification on the card disagrees with the CPU's")
 
 
+def floor_grid(log, dev, frame=None):
+    """The synthetic floor as the robot path's map: the log's scans
+    integrated at its ground-truth poses into a ``ROBOT_GRID_RES`` grid
+    that covers the floor plan with a ``ROBOT_GRID_MARGIN`` margin, in the
+    world frame or, with ``frame`` (a pose), in that pose's frame (the
+    online session's frame is the first scan's pose). Returns the grid and
+    the poses ``[T, 3]`` in that frame."""
+    import synthetic_log as synth
+    from laser_slam_tpu_torch.core import se2
+    from laser_slam_tpu_torch.mapping import occupancy as occ
+    from laser_slam_tpu_torch.ops import preprocess as pp
+
+    origin = np.zeros(3) if frame is None else np.asarray(frame, np.float64)
+    poses = se2.np_relative(origin[None], log.gt_pose.astype(np.float64)).astype(np.float32)
+    walls = synth.floor_plan()
+    ends = np.concatenate([walls[:, :2], walls[:, 2:]])
+    corners = se2.np_relative(origin[None], np.concatenate([ends, np.zeros((len(ends), 1))], 1))
+    lo = corners[:, :2].min(0) - ROBOT_GRID_MARGIN
+    hi = corners[:, :2].max(0) + ROBOT_GRID_MARGIN
+    res = ROBOT_GRID_RES
+    spec = occ.GridSpec2D(float(lo[0]), float(lo[1]), res,
+                          int(np.ceil((hi[0] - lo[0]) / res)), int(np.ceil((hi[1] - lo[1]) / res)))
+    scans = pp.preprocess(torch.as_tensor(log.ranges, device=dev), log.model)
+    grid = occ.integrate_scans(occ.empty_grid(spec, device=dev), log.model, scans,
+                               torch.as_tensor(poses, device=dev))
+    return grid, poses
+
+
+def nearest_pose(poses, xy_world, log):
+    """The pose (in ``poses``' frame) of the log's scan nearest a world
+    point."""
+    i = int(np.argmin(np.linalg.norm(log.gt_pose[:, :2] - np.asarray(xy_world), axis=1)))
+    return poses[i]
+
+
+def robot_mapping(K, log, grid, poses, smi, dev, tmp_dir):
+    """``[robot] mapping``: ``RobotController`` in mapping mode with the
+    floor grid and its portal, fed the log's first ``ROBOT_SCANS`` scans
+    with their odometry as fast as it takes them, ``control_tick`` after
+    every scan; a localhost console sends PING, GOTO (a goal in another
+    room), POSE, STATE and MAP. The card's local map is then held against
+    a ``LocalMapService`` on the CPU fed the same scans and poses. Returns
+    K1's batch-entry launches."""
+    import base64
+    import socket
+    import zlib
+
+    from laser_slam_tpu_torch.app import RobotController
+    from laser_slam_tpu_torch.app.config import RobotConfig
+    from laser_slam_tpu_torch.nav import local_map, planner
+
+    bot = RobotController(log.model, config=RobotConfig(log_file=os.path.join(tmp_dir, "robot.log")),
+                          work_mode="mapping", localization_grid=grid, enable_portal=True,
+                          device=dev)
+    if bot.tasks.grid.log_odds.device != grid.log_odds.device or bot.slam.device.type != dev.type:
+        raise AssertionError("RobotController does not run on the device it was given")
+    streamed, stream_s = [], []
+    stream_in = bot.local_map.stream_in
+
+    def recording(scan, pose):
+        t0 = time.perf_counter()
+        out = stream_in(scan, pose)
+        stream_s.append(time.perf_counter() - t0)
+        streamed.append((scan, np.array(pose)))
+        return out
+
+    bot.local_map.stream_in = recording
+    goal = nearest_pose(poses, ROBOT_GOTO_WORLD, log)[:2]
+    answers = {}
+    scan_s, tick_s, states = [], [], []
+    K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
+    try:
+        for i, r in enumerate(log.ranges[:ROBOT_SCANS]):
+            bot.on_odometry(*log.laser_pose[i])
+            t0 = time.perf_counter()
+            pose = bot.on_scan_main(r)
+            scan_s.append(time.perf_counter() - t0)
+            if pose is None or not np.isfinite(pose).all():
+                raise AssertionError(f"scan {i}: no finite pose from on_scan_main")
+            if i == ROBOT_CONSOLE_AT:
+                with socket.create_connection(("127.0.0.1", bot.portal.port), timeout=30) as c:
+                    f = c.makefile("rw", encoding="utf-8", newline="\n")
+                    for cmd in ("PING", f"GOTO {goal[0]:.4f} {goal[1]:.4f}", "POSE", "STATE", "MAP"):
+                        f.write(cmd + "\n")
+                        f.flush()
+                        answers[cmd.split()[0]] = f.readline().strip()
+            t0 = time.perf_counter()
+            bot.control_tick()
+            tick_s.append(time.perf_counter() - t0)
+            states.append(bot.tasks.state.value)
+        launches = K.match_psm_fused.launches
+    finally:
+        bot.shutdown()
+    pose_answer = [float(x) for x in answers["POSE"].split()[1:]]
+    map_answer = answers["MAP"].split()
+    cells = zlib.decompress(base64.b64decode(map_answer[4]))
+    if (answers["PING"] != "PONG" or answers["GOTO"] != "OK" or answers["STATE"] != "STATE planning"
+            or len(pose_answer) != 3 or not np.isfinite(pose_answer).all()
+            or map_answer[1:4] != ["128", "128", "0.100"] or len(cells) != 128 * 128):
+        raise AssertionError(f"the portal answered {answers}")
+    if "tracking" not in states and "turning" not in states:
+        raise AssertionError(f"the GOTO was never followed: states {sorted(set(states))}")
+    # The card's local map against the CPU's, fed the same scans and poses.
+    cpu = local_map.LocalMapService(log.model, device="cpu")
+    for scan, pose in streamed:
+        cpu.stream_in(type(scan)(*(x.cpu() for x in scan)), pose)
+    card = bot.local_map.map
+    origin_equal = torch.equal(card.origin_cell.cpu(), cpu.map.origin_cell)
+    map_err = float((card.log_odds.cpu() - cpu.map.log_odds).abs().max())
+    # One plan of the floor alone: its time and its device operations.
+    start = torch.as_tensor(poses[0, :2], device=dev)
+    goal_t = torch.as_tensor(goal, device=dev)
+    plan = lambda: planner.plan_path(grid, start, goal_t)                  # noqa: E731
+    plan_ms = host_ms(plan, 3)
+    _, plan_ops, plan_busy, _ = trace(plan) if dev.type == "cuda" else (0, 0, 0.0, {})
+    stream_alone_ms = host_ms(lambda: stream_in(*streamed[-1]), 20)
+    phase("robot", json.dumps({
+        "mapping": True, "scans": ROBOT_SCANS, "on_scan_main": percentiles(scan_s),
+        "control_tick": percentiles(tick_s), "stream_in_in_path": percentiles(stream_s),
+        "stream_in_alone_ms": stream_alone_ms, "states": sorted(set(states)),
+        "plan_ms": plan_ms, "plan_device_ops": plan_ops, "plan_device_busy_s": plan_busy,
+        "plan_grid": list(grid.log_odds.shape), "k1_two_pair_launches": launches,
+        "portal": answers["STATE"], "local_map_origin_equal_cpu": origin_equal,
+        "local_map_max_abs_diff_cpu": map_err, "card": smi}))
+    if not origin_equal or not map_err <= ROBOT_MAP_ATOL:
+        raise AssertionError(f"local map on the card against the CPU: origin equal {origin_equal}, "
+                             f"max |dlog-odds| {map_err} (bound {ROBOT_MAP_ATOL})")
+    return launches
+
+
+def robot_drive(log, grid, poses, smi, dev):
+    """``[robot] drive``: ``TaskEngine`` at its defaults on the floor grid
+    (world frame) drives a simulated robot through a two-leg path from room
+    1 through its doorway into the hall and along it (``DRIVE_LEGS_WORLD``,
+    snapped to the log's ground truth): each tick a scan is
+    ray-cast at the true pose, preprocessed and stepped, and ``(v, ω)`` is
+    integrated over ``DRIVE_DT``. Held: the engine reaches DONE, no pose
+    lies in an inflated obstacle cell, every ``v`` under its zone's cap,
+    the first plan identical to the CPU's, the dodge on every 50th tick's
+    scan the same on the card and on the CPU."""
+    from laser_slam_tpu_torch.app.task import TaskEngine, TaskState
+    from laser_slam_tpu_torch.localization.raycast import simulate_scan
+    from laser_slam_tpu_torch.mapping.occupancy import OccupancyGrid
+    from laser_slam_tpu_torch.nav import controller, local_planner, planner
+    from laser_slam_tpu_torch.ops import preprocess as pp
+
+    model = log.model
+    eng = TaskEngine(model, grid, device=dev)
+    start = nearest_pose(poses, DRIVE_LEGS_WORLD[0], log).astype(np.float64)
+    legs = [nearest_pose(poses, xy, log)[:2] for xy in DRIVE_LEGS_WORLD[1:]]
+    eng.add_path(legs)
+    blocked = planner.inflate_obstacles(grid, eng.robot_radius).cpu().numpy()
+    spec = grid.spec
+    caps = [z[1] for z in controller.ZONES] + [controller.FREE_SPEED]
+    plans = []
+    plan = eng._plan
+
+    def timed_plan(*a):
+        t0 = time.perf_counter()
+        out = plan(*a)
+        plans.append((a[0].copy(), a[1].copy(), out[1], out[2], time.perf_counter() - t0))
+        return out
+
+    eng._plan = timed_plan
+    pose, tick_s, dodge_checks, inside = start.copy(), [], 0, 0
+    for tick in range(DRIVE_MAX_TICKS):
+        ranges = simulate_scan(grid, model, torch.as_tensor(pose, dtype=torch.float32, device=dev))
+        scan = pp.preprocess(ranges[None], model)
+        scan = type(scan)(*(x[0] for x in scan))
+        t0 = time.perf_counter()
+        cmd = eng.step(pose.astype(np.float32), scan)
+        v, omega, zone = torch.stack([cmd.v, cmd.omega, cmd.zone.to(cmd.v.dtype)]).cpu().numpy()
+        tick_s.append(time.perf_counter() - t0)
+        cx, cy = (int(np.floor((pose[0] - spec.origin_x) / spec.resolution)),
+                  int(np.floor((pose[1] - spec.origin_y) / spec.resolution)))
+        inside += bool(blocked[cy, cx])
+        if v > caps[int(zone)] + 1e-6:
+            raise AssertionError(f"tick {tick}: v {v} above zone {int(zone)}'s cap")
+        if tick % DRIVE_DODGE_EVERY == 0:
+            got = [local_planner.dodge_path(model, s) for s in (scan, type(scan)(*(x.cpu() for x in scan)))]
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(*got)):
+                raise AssertionError(f"tick {tick}: the dodge on the card differs from the CPU's")
+            dodge_checks += 1
+        if eng.state in (TaskState.DONE, TaskState.FAILED):
+            break
+        pose[0] += DRIVE_DT * v * np.cos(pose[2])
+        pose[1] += DRIVE_DT * v * np.sin(pose[2])
+        pose[2] = (pose[2] + DRIVE_DT * omega + np.pi) % (2 * np.pi) - np.pi
+    # The first plan again on the CPU.
+    s0, g0, path0, n0, _ = plans[0]
+    cpu = planner.plan_path(OccupancyGrid(grid.log_odds.cpu(), spec), torch.as_tensor(s0),
+                            torch.as_tensor(g0))
+    same_plan = (int(cpu.n_valid) == n0 and np.array_equal(cpu.path.numpy(), path0))
+    phase("robot", json.dumps({
+        "drive": True, "state": eng.state.value, "ticks": tick + 1, "plans": eng.n_plans,
+        "replans": eng._replans, "dodges": eng.n_dodges, "tick": percentiles(tick_s),
+        "plan_s": [p[4] for p in plans], "first_plan_n_valid": n0,
+        "first_plan_same_as_cpu": same_plan, "dodge_checks_card_cpu": dodge_checks,
+        "ticks_in_inflated_cells": inside, "end_xy": [float(pose[0]), float(pose[1])],
+        "goal_xy": [float(x) for x in legs[-1]], "card": smi}))
+    if eng.state is not TaskState.DONE:
+        raise AssertionError(f"the drive ended {eng.state.value} after {tick + 1} ticks")
+    if inside:
+        raise AssertionError(f"{inside} ticks put the robot in an inflated obstacle cell")
+    if not same_plan:
+        raise AssertionError("the first plan on the card differs from the CPU's")
+
+
+def robot_phase(K, log, smi, tmp_dir):
+    """The robot application path (phase 12) on ``cuda``: ``[robot]
+    mapping``, then ``[robot] drive``. Returns K1's batch-entry launches
+    of the mapping run, which must be one a scan after the first."""
+    dev = torch.device("cuda")
+    grid, poses = floor_grid(log, dev, frame=log.gt_pose[0])
+    launches = robot_mapping(K, log, grid, poses, smi, dev, tmp_dir)
+    if launches != ROBOT_SCANS - 1:
+        raise AssertionError(f"{ROBOT_SCANS} scans through RobotController launched K1's batch "
+                             f"entry {launches} times")
+    world, world_poses = floor_grid(log, dev)
+    robot_drive(log, world, world_poses, smi, dev)
+    return launches
+
+
 def main() -> None:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1373,6 +1628,9 @@ def main() -> None:
         slam_icp_phase(log, smi)
         features_phase(log, smi)
 
+        # -- 12. the robot application path --------------------------------------
+        robot_launches = robot_phase(K, log, smi, tmp.name)
+
     # Small input against the plain version on the CPU: the first 300
     # pairs. Float transcendentals differ between the two devices in the
     # last bit, which can flip which pair covers a bin at a segment end in
@@ -1383,7 +1641,7 @@ def main() -> None:
                         psm.match_psm(lms211, a.to("cpu"), b.to("cpu")),
                         f"{lms211.name} x300, plain on cpu")
 
-    # -- 12. the bundled intel-lab log, when present ------------------------
+    # -- 13. the bundled intel-lab log, when present ------------------------
     if INTEL_LOG.exists():
         run = cli.main(["odometry", str(INTEL_LOG), "--device", "cuda"])
         ate = float(run.ate.rmse)
@@ -1410,9 +1668,10 @@ def main() -> None:
         {
             "name": "psm_match_kernel (K1, batch entry: one block per pair)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": batch_launches + online_launches + tcp_launches,
+            "launches": batch_launches + online_launches + tcp_launches + robot_launches,
             "launches_pairwise": batch_launches, "launches_online": online_launches,
-            "launches_tcp": tcp_launches, "launches_cli_slam": 0,
+            "launches_tcp": tcp_launches, "launches_robot": robot_launches,
+            "launches_cli_slam": 0,
             "max_abs_err": max(s["max_abs_err"] for s in stats),
             "ms": batch_ms, "plain_ms": batch_plain_ms,
             "bound_ms": batch_bound, "bound_by": batch_bound_by,

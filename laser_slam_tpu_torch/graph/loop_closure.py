@@ -445,13 +445,29 @@ def verify_loops_correlative(
     cand_radius: Tensor | None = None,
     wide_pts: Tensor | None = None,
     wide_ok: Tensor | None = None,
-    **opts,
+    search_xy: float = 5.0,
+    search_theta: float = math.pi,
+    n_theta: int = 72,
+    coarse_res: float = 0.3,
+    coarse_points: int = 192,
+    n_peaks: int = 8,
+    chunk: int = 32,
+    coarse_chunk: int = 16,
+    coarse_min_score: float = 0.2,
+    quality_min: float = 0.6,
+    err_max: float = 0.05,
+    cycle_t_max: float = 0.25,
+    cycle_r_max: float = 0.1,
+    strong_goodness: float = 0.8,
+    strong_err: float = 0.03,
+    identity_init: bool = False,
 ) -> VerifiedLoops:
     """Init-free verification of anchor-pair candidates: gathers each
     pair's narrow submap clouds (and, with ``wide_pts``, the wide context
     clouds of both anchors; else the narrow ones stand in) and the
     estimate's relative pose, then runs :func:`verify_pairs_correlative`
-    with ``opts``."""
+    with the options. ``coarse_chunk`` is accepted and not used, as in the
+    reference (the coarse search runs in chunks of ``chunk``)."""
     ref_pts, ref_ok = submaps.points[cand.src], submaps.valid[cand.src]
     cur_pts, cur_ok = submaps.points[cand.dst], submaps.valid[cand.dst]
     if wide_pts is not None:
@@ -462,7 +478,12 @@ def verify_loops_correlative(
     odo_rel = se2.relative(anchor_poses[cand.src], anchor_poses[cand.dst])
     return verify_pairs_correlative(
         refw_pts, refw_ok, ref_pts, ref_ok, curw_pts, curw_ok, cur_pts, cur_ok,
-        odo_rel, cand.valid, cand_radius, src=cand.src, dst=cand.dst, **opts)
+        odo_rel, cand.valid, cand_radius, src=cand.src, dst=cand.dst,
+        search_xy=search_xy, search_theta=search_theta, n_theta=n_theta,
+        coarse_res=coarse_res, coarse_points=coarse_points, n_peaks=n_peaks, chunk=chunk,
+        coarse_min_score=coarse_min_score, quality_min=quality_min, err_max=err_max,
+        cycle_t_max=cycle_t_max, cycle_r_max=cycle_r_max,
+        strong_goodness=strong_goodness, strong_err=strong_err, identity_init=identity_init)
 
 
 def verify_pairs_correlative(

@@ -145,9 +145,31 @@ def named_state_from_numpy(cls, fields: dict, device=None):
 def named_state_to_numpy(state) -> dict:
     """The field dict of a ``UkfState``, ``ParticleState``, odometry
     carry, ``PlIcpResult`` or ``FeatureSet`` as numpy arrays (a carry's
-    scans as ``(ranges, bad, seg)``)."""
+    scans as ``(ranges, bad, seg)``); as well of the navigation results:
+    ``PlanResult``, ``Milestone``, ``ControlCommand``, the trajectory
+    tuples (``Profile``, ``BlendedCorner``, ``WheelSchedule``,
+    ``Schedule``) and ``BeaconFix``."""
     return {k: scan_to_numpy(v) if isinstance(v, Scan) else v.detach().cpu().numpy()
             for k, v in state._asdict().items()}
+
+
+def local_map_from_numpy(log_odds, origin_cell, resolution: float, device=None):
+    """A port ``LocalMap`` from its log-odds ``[H, W]``, the world cell
+    ``(cx, cy)`` of its cell ``(0, 0)`` (exact, int32) and its
+    resolution."""
+    from .nav.local_map import LocalMap
+
+    return LocalMap(
+        log_odds=torch.tensor(np.asarray(log_odds, np.float32), device=device),
+        origin_cell=torch.tensor(np.asarray(origin_cell).astype(np.int32), device=device),
+        resolution=float(resolution),
+    )
+
+
+def local_map_to_numpy(lmap) -> tuple[np.ndarray, np.ndarray, float]:
+    """``(log_odds, origin_cell, resolution)`` of a port ``LocalMap``."""
+    return (lmap.log_odds.detach().cpu().numpy(),
+            lmap.origin_cell.cpu().numpy().astype(np.int32), float(lmap.resolution))
 
 
 def _backend_fields(group_pts, group_ok, bank, tried, n_loops) -> dict:

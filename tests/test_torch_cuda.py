@@ -444,3 +444,89 @@ def test_loopback_on_cuda(cuda):
     traj, loops = tcp_slam.run_loopback(model, synthetic_log.box_loop_scans(170), cfg)
     assert psm_kernel.match_psm_fused.launches - before == 169
     assert traj.shape == (170, 3) and np.isfinite(traj).all() and loops >= 1
+
+
+# -- the robot application path ---------------------------------------------------
+
+def _floor_and_scans(n):
+    """The synthetic floor integrated at the ground truth of the log's
+    first ``n`` scans (0.05 m, on the CPU), and those scans padded to
+    LMS211."""
+    from laser_slam_tpu_torch.mapping import occupancy as occ
+
+    ranges, gt, _ = synthetic_log.synthetic_log(n_scans=n, n_whips=0)
+    pad = S.pad_beams(ranges, S.LMS211.n_beams, S.LMS211.max_range + 1.0)
+    spec = occ.GridSpec2D(-0.5, -0.5, 0.05, 380, 260)
+    scans = pp.preprocess(torch.as_tensor(pad), S.LMS211)
+    grid = occ.integrate_scans(occ.empty_grid(spec), S.LMS211, scans,
+                               torch.as_tensor(gt, dtype=torch.float32))
+    return grid, pad, gt.astype(np.float32)
+
+
+def test_plan_path_on_the_card_matches_the_cpu(cuda):
+    """A plan across the synthetic floor (through a doorway) on the card
+    and on the CPU: the same cells, ``n_valid`` and ``reached`` (min and
+    add are exact in float32; the cells follow the same rounding)."""
+    from laser_slam_tpu_torch.mapping.occupancy import OccupancyGrid
+    from laser_slam_tpu_torch.nav.planner import plan_path
+
+    grid, _, _ = _floor_and_scans(600)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = OccupancyGrid(grid.log_odds.to(dev), grid.spec)
+        res = plan_path(g, torch.tensor([3.5, 6.0], device=dev), torch.tensor([4.2, 9.8], device=dev))
+        out[dev] = [x.cpu() for x in res]
+    assert bool(out["cpu"][2]) and int(out["cpu"][3]) > 20
+    for k in (0, 2, 3):
+        assert torch.equal(out["cuda"][k], out["cpu"][k]), k
+
+
+def test_local_map_on_the_card_matches_the_cpu(cuda):
+    """200 posed scans through ``LocalMapService`` on the card and on the
+    CPU: ``origin_cell`` equal; log-odds within 1e-4 (the same samples in
+    the same cells — :mod:`refmath` rounds the bearings, sines, cosines and
+    sample points alike on both — summed by atomic adds in another order)."""
+    from laser_slam_tpu_torch.nav.local_map import LocalMapService
+
+    _, pad, gt = _floor_and_scans(200)
+    svc = {dev: LocalMapService(S.LMS211, device=dev) for dev in ("cuda", "cpu")}
+    scans = pp.preprocess(torch.as_tensor(pad), S.LMS211)
+    for i in range(len(gt)):
+        for dev, s in svc.items():
+            s.stream_in(S.Scan(*(x[i].to(dev) for x in scans)), gt[i])
+    g, c = svc["cuda"].map, svc["cpu"].map
+    assert g.log_odds.device.type == "cuda"
+    assert torch.equal(g.origin_cell.cpu(), c.origin_cell)
+    assert float((g.log_odds.cpu() - c.log_odds).abs().max()) <= 1e-4
+    assert int((c.log_odds > 1.0).sum()) > 200
+
+
+def test_dodge_path_on_the_card_matches_the_cpu(cuda):
+    """The local dodge on 100 scans of the synthetic log, card against CPU:
+    the same Milestone, bit for bit."""
+    from laser_slam_tpu_torch.nav.local_planner import dodge_path
+
+    _, pad, _ = _floor_and_scans(100)
+    scans = pp.preprocess(torch.as_tensor(pad), S.LMS211)
+    oks = 0
+    for i in range(len(pad)):
+        got = [dodge_path(S.LMS211, S.Scan(*(x[i].to(dev) for x in scans))) for dev in ("cuda", "cpu")]
+        for a, b in zip(*got):
+            assert torch.equal(a.cpu(), b)
+        oks += bool(got[1].ok)
+    assert oks > 50
+
+
+def test_task_engine_runs_on_cuda_by_default(cuda):
+    """Without ``device`` the task engine moves its grid to the card and
+    its commands are made there."""
+    from laser_slam_tpu_torch.app.task import TaskEngine, TaskState
+
+    grid, pad, gt = _floor_and_scans(600)
+    eng = TaskEngine(S.LMS211, grid)
+    assert eng.grid.log_odds.device.type == "cuda"
+    eng.add_goal((4.2, 9.8))
+    scan = pp.preprocess(torch.as_tensor(pad[300], device="cuda")[None], S.LMS211)
+    cmd = eng.step(np.array([3.5, 6.0, np.pi / 2], np.float32), S.Scan(*(x[0] for x in scan)))
+    assert eng.state in (TaskState.TURNING, TaskState.TRACKING)
+    assert cmd.v.device.type == "cuda"

@@ -15,6 +15,7 @@ round-off.
 """
 
 import dataclasses
+import inspect
 import os
 import sys
 
@@ -168,6 +169,32 @@ def test_verify_loops_correlative_matches_jax(front):
     want = jlc.verify_loops_correlative(jsm, jap, jc, None, **opts)
     got = tlc.verify_loops_correlative(tsm, tap, tc, None, **opts)
     held(got, want)
+
+
+def test_verify_loops_correlative_takes_the_reference_options(front):
+    """The wrapper names the reference's 16 options with its defaults: a
+    call that passes ``coarse_chunk`` (accepted and unused in both
+    packages) gives JAX's flags; an option the reference does not name is
+    refused."""
+    _, jap, jcand, jsm = jax_state(front)
+    _, tap, tcand, tsm = port_state(front)
+    sel = slice(16, 32)
+    jc = jlc.LoopCandidates(*(x[sel] for x in jcand))
+    tc = tlc.LoopCandidates(*(x[sel] for x in tcand))
+    opts = dict(search_xy=3.0, n_theta=24, n_peaks=4, chunk=8, coarse_chunk=16,
+                identity_init=True)
+    want = jlc.verify_loops_correlative(jsm, jap, jc, None, **opts)
+    got = tlc.verify_loops_correlative(tsm, tap, tc, None, **opts)
+    held(got, want)
+    np.testing.assert_array_equal(got.tentative.numpy(), np.asarray(want.tentative))
+    names = lambda f: list(inspect.signature(f).parameters)[6:]          # noqa: E731
+    assert names(tlc.verify_loops_correlative) == names(jlc.verify_loops_correlative)
+    assert len(names(tlc.verify_loops_correlative)) == 16
+    for k in names(jlc.verify_loops_correlative):
+        assert (inspect.signature(tlc.verify_loops_correlative).parameters[k].default
+                == pytest.approx(inspect.signature(jlc.verify_loops_correlative).parameters[k].default))
+    with pytest.raises(TypeError):
+        tlc.verify_loops_correlative(tsm, tap, tc, None, triage_steps_per_nn=2)
 
 
 @pytest.mark.parametrize("use_submaps", [False, True])

@@ -169,7 +169,10 @@ def test_port_imports_without_jax():
         "mapping.incremental", "fusion.ukf", "runtime.backend", "runtime.online",
         "runtime.facade", "localization.raycast", "localization.particle_filter",
         "nav.controller", "native.api", "runtime.tcp_slam", "ops.icp", "ops.plicp",
-        "features.detector", "features.descriptor", "features.ransac")} <= set(names)
+        "features.detector", "features.descriptor", "features.ransac",
+        "nav.planner", "nav.local_map", "nav.local_planner", "nav.trajectory", "core.refmath",
+        "app.config", "app.logfile", "app.monitor", "app.beacon", "app.serial_ctrl", "app.portal",
+        "app.task", "app.mission", "app.robot")} <= set(names)
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['laser_slam_tpu'] = None\n"
         f"import importlib\nfor n in {names!r} + ['chip_smoke']:\n    importlib.import_module(n)\n"
@@ -182,7 +185,7 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(names) >= 47
+    assert len(names) >= 71
     for path in [*(ROOT / "laser_slam_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
                  ROOT / "tools" / "synthetic_log.py"]:
         text = path.read_text()
