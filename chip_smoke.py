@@ -77,8 +77,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the true pose), held to reach its goal outside the inflated
     obstacles, under the zones' speed caps, its first plan and its dodges
     the CPU's;
-13. the bundled intel-lab log, when present at the repo's reference-data
-    location (``REFERENCE_DATA``, as in ``tests/conftest.py``).
+13. the Kalman and landmark filters (``[fusion]``): a range-bearing
+    covariance filter through ``torch.func.jacfwd`` and the UdU filter
+    against the covariance filter (1000 steps each), EKF-SLAM with 128
+    landmark slots (1000 steps, up to 8 sightings a step) and fastSLAM
+    with 4096 particles × 64 slots (300 steps), every draw from one CPU
+    generator: EKF-SLAM on the card against the CPU, fastSLAM's poses up
+    to its first resample against the CPU, each filter against the
+    simulated truth, ms and device operations a step, peak memory;
+14. ``parallel/`` on a one-rank NCCL group (``[parallel]``):
+    ``sharded_batch_match`` over the log's 2671 pairs with PSM (K1's batch
+    entry), polar ICP and PL-ICP, each equal to the undistributed call;
+    ``distributed_optimize`` against ``optimize`` on ``[slam]``'s anchor
+    graph (dense route) and on all scans' odometry chain with 512 loops
+    (CG route), within ``optimize``'s own run-to-run spread;
+    ``training_step`` over 512 pairs in the dry-run layout; two ranks on
+    the one card as two processes over gloo;
+15. the bundled logs (intel-lab, fr079, mit-cscail), each when present at
+    the repo's reference-data location (``REFERENCE_DATA``, as in
+    ``tests/conftest.py``).
 
 The last three lines of stdout are the kernels' JSON
 record, the card's name and power limit, and the device JSON line.
@@ -132,11 +149,10 @@ CARD_FRONT_ATOL = 1e-4
 # below what the verifier accepts there with its own draws on the CPU).
 FEATURES_MIN_NEAR_ACCEPTED = 40
 # The bundled logs' location, as in tests/conftest.py, and the recorded
-# keyframe-odometry ATE of the JAX package on intel-lab
-# (tests/test_accuracy.py) with the regression factor applied there.
+# keyframe-odometry ATE of the JAX package on each (tests/test_accuracy.py)
+# with the regression factor applied there.
 REFERENCE_DATA = "/root/reference/data"
-INTEL_LOG = Path(REFERENCE_DATA, "intel-lab.log")
-INTEL_ODOMETRY_ATE = 8.97
+REFERENCE_ODOMETRY_ATE = {"intel-lab": 8.97, "fr079": 3.00, "mit-cscail": 1.81}
 # K1 against the plain matcher on the same card: the same fail flags,
 # every pose within 1e-4 (float32 op order: fused multiply-adds, block
 # reductions) and every mean residual within rtol 1e-4, as in
@@ -185,6 +201,41 @@ ROBOT_MAP_ATOL = 1e-4
 # ticks). DRIVE_DT is the control period.
 DRIVE_LEGS_WORLD = ((4.2, 9.8), (3.5, 6.0), (14.5, 6.0))
 DRIVE_MAX_TICKS, DRIVE_DT, DRIVE_DODGE_EVERY = 1500, 0.1, 50
+# [fusion]: the Kalman and landmark filters at full size. A world of
+# FUSION_LANDMARKS landmarks in a FUSION_WORLD m square; the robot drives a
+# circle of FUSION_RADIUS m about its centre, FUSION_STEP m a step with
+# noise FUSION_MOTION_SIGMA (x, y, θ), and sights the nearest landmarks
+# within FUSION_SENSOR_RANGE m, at most FUSION_SIGHTINGS a step, with
+# noise FUSION_OBS_SIGMA (range, bearing). EKF-SLAM holds FUSION_EKF_SLOTS
+# slots (a 259-dimensional state); fastSLAM FUSION_PARTICLES particles (the
+# particle filter's count in [localize]) × FUSION_FAST_SLOTS slots for
+# FUSION_FAST_STEPS steps. Operations a step are read from a profiler trace
+# of FUSION_TRACE_STEPS more steps.
+FUSION_SEED, FUSION_STEPS, FUSION_TRACE_STEPS = 0, 1000, 10
+FUSION_LANDMARKS, FUSION_WORLD, FUSION_RADIUS, FUSION_STEP = 60, 40.0, 12.0, 0.1
+FUSION_SENSOR_RANGE, FUSION_SIGHTINGS = 10.0, 8
+FUSION_MOTION_SIGMA = np.array([0.01, 0.01, 0.002])
+FUSION_OBS_SIGMA = np.array([0.05, 0.01])
+FUSION_EKF_SLOTS, FUSION_PARTICLES, FUSION_FAST_SLOTS, FUSION_FAST_STEPS = 128, 4096, 64, 300
+FUSION_CPU_STEPS = 100
+# Bounds of [fusion], set with margin over an H100 run (NVIDIA H100 80GB
+# HBM3, 700.00 W; measured in brackets): the covariance filter's mean
+# position error, m [0.019]; the UdU filter's mean against the covariance
+# filter's [2.9e-6]; the card against the CPU on the same inputs and draws,
+# EKF-SLAM means after FUSION_CPU_STEPS steps and fastSLAM poses up to the
+# first resample [1.4e-5, 3e-8]; the mean landmark error of EKF-SLAM, m
+# [0.150] (fastSLAM: twice it [0.093]); fastSLAM's pose error, m [0.187].
+FUSION_POS_ERR, FUSION_UDU_ATOL, FUSION_CARD_CPU_ATOL, FUSION_LM_ERR = 0.05, 1e-4, 1e-3, 0.25
+FUSION_FAST_POS_ERR = 0.5
+# [parallel]: the CG-route graph takes PARALLEL_CG_LOOPS loops from the
+# ground truth between scans at least PARALLEL_CG_MIN_GAP apart;
+# training_step runs PARALLEL_TRAIN_PAIRS pairs in the dry-run layout of
+# the JAX package's multi-chip dry run (tools/torch_multiproc_worker.py). The
+# distributed solve is held to optimize within max(2 × optimize's own
+# run-to-run spread, PARALLEL_SOLVE_FLOOR) m, the spread read from two plain
+# runs (ROADMAP Queue 3 measured 3.8e-6 to 5.3e-6 m on cli slam's solves).
+PARALLEL_CG_LOOPS, PARALLEL_CG_MIN_GAP, PARALLEL_TRAIN_PAIRS = 512, 200, 512
+PARALLEL_SOLVE_FLOOR = 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth. The bounds below are stated against them.
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -376,7 +427,8 @@ def host_s(fn):
 def slam_phase(cli, K, log_path, log, smi):
     """Drives ``cli slam`` on ``cuda`` at ``SlamConfig()`` defaults, holds
     the result (see the module docstring), prints the ``[slam]``
-    lines and the trace of one wave. Returns K1's chain-entry launches."""
+    lines and the trace of one wave. Returns K1's chain-entry launches
+    and the run's diagnostics (the loop bank, the anchor poses)."""
     from laser_slam_tpu_torch.eval.diagnostics import classify_loops
     from laser_slam_tpu_torch.graph import solve
     from laser_slam_tpu_torch.graph.submap import build_submaps
@@ -388,9 +440,9 @@ def slam_phase(cli, K, log_path, log, smi):
     # accept flags on the host: the calls count the solver's device syncs.
     solve_normal, lm_iterations = solve._solve_normal, [0]
 
-    def counting(g, lam):
+    def counting(g, lam, **kw):
         lm_iterations[0] += 1
-        return solve_normal(g, lam)
+        return solve_normal(g, lam, **kw)
 
     K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -461,7 +513,7 @@ def slam_phase(cli, K, log_path, log, smi):
         "card": smi}))
     if n_ops == 0 or host_ops.get("h1_nearest_two", (0, 0.0))[0] == 0:
         raise AssertionError("the traced wave ran no device operation of the verifier")
-    return launches[0]
+    return launches[0], run.diag
 
 
 
@@ -1365,6 +1417,447 @@ def robot_phase(K, log, smi, tmp_dir):
     return launches
 
 
+def fusion_world(gen):
+    """The simulated world of ``[fusion]``, every draw from ``gen`` (a CPU
+    generator): ``FUSION_LANDMARKS`` landmarks in a square of
+    ``FUSION_WORLD`` m; a robot driving a circle of ``FUSION_RADIUS`` m
+    about its centre with noisy steps; each step's sightings of the
+    nearest landmarks within ``FUSION_SENSOR_RANGE`` (at most
+    ``FUSION_SIGHTINGS``) as noisy range and bearing. Returns numpy arrays:
+    landmarks ``[L, 2]``, the commanded step ``[3]``, true poses ``[T + 1,
+    3]``, sighted ids ``[T, S]`` (-1 pads), ranges and bearings ``[T, S,
+    2]``, and the sighting counts ``[T]``."""
+    from laser_slam_tpu_torch.core import se2
+
+    half = FUSION_WORLD / 2
+    lms = (torch.rand(FUSION_LANDMARKS, 2, generator=gen, dtype=torch.float64) * 2 - 1) * half
+    lms = lms.numpy()
+    step = np.array([FUSION_STEP, 0.0, FUSION_STEP / FUSION_RADIUS])
+    noise = torch.randn(FUSION_STEPS, 3, generator=gen, dtype=torch.float64).numpy()
+    truth = np.zeros((FUSION_STEPS + 1, 3))
+    truth[0] = (FUSION_RADIUS, 0.0, np.pi / 2)
+    ids = np.full((FUSION_STEPS, FUSION_SIGHTINGS), -1, np.int64)
+    z = np.zeros((FUSION_STEPS, FUSION_SIGHTINGS, 2))
+    count = np.zeros(FUSION_STEPS, np.int64)
+    zn = torch.randn(FUSION_STEPS, FUSION_SIGHTINGS, 2, generator=gen, dtype=torch.float64).numpy()
+    for t in range(FUSION_STEPS):
+        truth[t + 1] = se2.np_compose(truth[t], step + noise[t] * FUSION_MOTION_SIGMA)
+        d = lms - truth[t + 1, :2]
+        rng = np.hypot(d[:, 0], d[:, 1])
+        near = np.argsort(rng, kind="stable")[:FUSION_SIGHTINGS]
+        near = near[rng[near] < FUSION_SENSOR_RANGE]
+        count[t] = len(near)
+        ids[t, :len(near)] = near
+        brg = se2.np_normalize_angle(np.arctan2(d[near, 1], d[near, 0]) - truth[t + 1, 2])
+        z[t, :len(near)] = np.stack([rng[near], brg], -1) + zn[t, :len(near)] * FUSION_OBS_SIGMA
+    return lms, step, truth, ids, z, count
+
+
+def fusion_phase(smi):
+    """The landmark and Kalman filters (``fusion/kalman``,
+    ``fusion/slam_schemes``) on ``cuda`` at full size, the same draws on
+    the card and on the CPU. Prints ``[fusion]`` lines; raises when a
+    bound is missed."""
+    from laser_slam_tpu_torch.core import se2
+    from laser_slam_tpu_torch.fusion import kalman as kf
+    from laser_slam_tpu_torch.fusion import slam_schemes as ss
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # Every draw of the phase comes from this one CPU generator; fastSLAM's
+    # card and CPU runs replay the same stretch of it.
+    gen = torch.Generator().manual_seed(FUSION_SEED)
+    lms, step, truth, ids, z, count = fusion_world(gen)
+    T = FUSION_STEPS
+    R = np.diag(np.square(FUSION_OBS_SIGMA)).astype(np.float32)
+    on = {d: dict(step=torch.tensor(step, dtype=torch.float32, device=d),
+                  ids=torch.as_tensor(ids, device=d), z=torch.tensor(z, dtype=torch.float32, device=d),
+                  R=torch.tensor(R, device=d), lms=torch.tensor(lms, dtype=torch.float32, device=d))
+          for d in (dev, torch.device("cpu"))}
+    q_pose = np.square(FUSION_MOTION_SIGMA).astype(np.float32)
+
+    # -- the covariance filter through jacfwd: localization against the
+    # known landmarks, the nearest two sightings a step in one update.
+    def cov_filter(steps, start=None):
+        c = on[dev]
+        s = start or kf.init(torch.tensor(truth[0], dtype=torch.float32), 1e-4, device=dev)
+        R2 = torch.block_diag(c["R"], c["R"])
+        means = []
+        for t in range(steps):
+            s = kf.predict(s, lambda x: se2.compose(x, c["step"]), torch.diag(torch.tensor(q_pose, device=dev)))
+            k = min(int(count[t]), 2)
+            if k:
+                lm, zk = c["lms"][c["ids"][t, :k]], c["z"][t, :k]
+
+                def h(x, lm=lm):
+                    d = lm - x[:2]
+                    return torch.stack([torch.sqrt(torch.sum(d * d, dim=-1)),
+                                        torch.atan2(d[:, 1], d[:, 0]) - x[2]], dim=-1).reshape(-1)
+
+                hb = h(s.mean).view(k, 2)[:, 1]
+                zk = torch.stack([zk[:, 0], hb + se2.normalize_angle(zk[:, 1] - hb)], dim=-1)
+                s = kf.update(s, h, zk.reshape(-1), R2[:2 * k, :2 * k])
+            means.append(s.mean)
+        return s, torch.stack(means)
+
+    (cov_state, cov_means), cov_s = host_s(lambda: cov_filter(T))
+    cov_err = np.linalg.norm(cov_means.cpu().numpy()[:, :2] - truth[1:, :2], axis=1)
+    _, cov_ops, _, _ = trace(lambda: cov_filter(FUSION_TRACE_STEPS, cov_state))
+
+    # -- the UdU filter against the covariance filter: a constant-velocity
+    # state of 6 (x, y, θ and their rates), the pose observed.
+    n, dt = 6, 0.1
+    F = torch.eye(n, device=dev)
+    F[:3, 3:] = dt * torch.eye(3, device=dev)
+    qd = torch.tensor([1e-5, 1e-5, 1e-6, 1e-3, 1e-3, 1e-4], device=dev)
+    Hm = torch.eye(n, device=dev)[:3]
+    rd = torch.tensor([0.05 ** 2, 0.05 ** 2, 0.01 ** 2], device=dev)
+    meas_noise = torch.randn(T, 3, generator=gen)
+    zpose = torch.tensor(truth[1:], dtype=torch.float32, device=dev) + meas_noise.to(dev) * rd.sqrt()
+    init6 = torch.cat([zpose[0], torch.zeros(3, device=dev)])
+
+    def ud_vs_cov(steps, us=None, ks=None):
+        us = us or kf.ud_init(init6, 1.0)
+        ks = ks or kf.init(init6, 1.0)
+        gap = []
+        for t in range(steps):
+            us = kf.thornton_predict(us, F, qd)
+            ks = kf.predict_linear(ks, F, torch.diag(qd))
+            zt = zpose[t]
+            # Heading innovation wrapped on the device, the same for both.
+            us = kf.ud_update(us, Hm, torch.cat([zt[:2] - us.mean[:2],
+                                                 se2.normalize_angle(zt[2:] - us.mean[2:3])]), rd)
+            ks = kf.update_linear(ks, Hm, torch.cat([zt[:2] - ks.mean[:2],
+                                                     se2.normalize_angle(zt[2:] - ks.mean[2:3])]),
+                                  torch.diag(rd))
+            gap.append(torch.stack([torch.max(torch.abs(us.mean - ks.mean)),
+                                    torch.max(torch.abs(us.cov() - ks.cov))]))
+        return us, ks, torch.stack(gap)
+
+    (ud_state, kc_state, gap), ud_s = host_s(lambda: ud_vs_cov(T))
+    gap = gap.cpu().numpy()
+    ud_err = float(np.linalg.norm(ud_state.mean.cpu().numpy()[:2] - truth[T, :2]))
+    _, ud_ops, _, _ = trace(lambda: ud_vs_cov(FUSION_TRACE_STEPS, ud_state, kc_state))
+
+    # -- EKF-SLAM with L_max = 128, on the card and on the CPU.
+    def ekf_run(d, steps, e=None):
+        c = on[d]
+        t0 = 0 if e is None else FUSION_CPU_STEPS
+        e = e or ss.ekfslam_init(torch.tensor(truth[0], dtype=torch.float32), FUSION_EKF_SLOTS,
+                                 device=d)
+        for t in range(t0, t0 + steps):
+            e = ss.ekfslam_predict(e, c["step"], torch.diag(torch.tensor(q_pose, device=d)))
+            for k in range(int(count[t])):
+                e = ss.ekfslam_observe(e, c["ids"][t, k], c["z"][t, k], c["R"])
+        return e
+
+    # The CPU runs the first FUSION_CPU_STEPS steps (a 259² Joseph update
+    # costs it ~50 ms a step); the card's state there is held to the CPU's.
+    def ekf_card():
+        e = ekf_run(dev, FUSION_CPU_STEPS)
+        return e, ekf_run(dev, T - FUSION_CPU_STEPS, e)
+
+    (ekf_at, ekf), ekf_s = host_s(ekf_card)
+    ekf_cpu = ekf_run(torch.device("cpu"), FUSION_CPU_STEPS)
+    ekf_gap = float((ekf_at.mean.cpu() - ekf_cpu.mean).abs().max())
+    seen = np.zeros(FUSION_EKF_SLOTS, bool)
+    seen[np.unique(ids[ids >= 0])] = True
+    if not np.array_equal(ekf.lm_valid.cpu().numpy(), seen):
+        raise AssertionError("EKF-SLAM's valid landmark slots are not the sighted landmarks")
+    ekf_lm_err = np.linalg.norm(ekf.landmarks().cpu().numpy()[seen] - lms[seen[:FUSION_LANDMARKS]],
+                                axis=1)
+    ekf_pose_err = float(np.linalg.norm(ekf.robot().cpu().numpy()[:2] - truth[T, :2]))
+    _, ekf_ops, _, _ = trace(lambda: ekf_run(dev, FUSION_TRACE_STEPS, ekf))
+
+    # -- fastSLAM, 4096 particles × 64 landmarks, card and CPU on the same
+    # draws, the CPU up to the first resample.
+    sigma = torch.tensor(FUSION_MOTION_SIGMA, dtype=torch.float32)
+    draws = gen.get_state()
+
+    def replay():
+        return torch.Generator().set_state(draws)
+
+    def fast_run(d, steps, gen, stop_at_resample=False, s=None):
+        c = on[d]
+        s = s or ss.fastslam_init(torch.tensor(truth[0], dtype=torch.float32), FUSION_PARTICLES,
+                                  FUSION_FAST_SLOTS, device=d)
+        first = None
+        for t in range(steps):
+            s = ss.fastslam_predict(s, gen, c["step"], sigma)
+            for k in range(int(count[t])):
+                s = ss.fastslam_observe(s, c["ids"][t, k], c["z"][t, k], c["R"])
+            if float(ss.fastslam_neff(s)) < FUSION_PARTICLES / 2:
+                if first is None:
+                    first = t
+                    if stop_at_resample:
+                        return s, first
+                s = ss.fastslam_resample(s, gen)
+        return s, first
+
+    (fast, first_resample), fast_s = host_s(lambda: fast_run(dev, FUSION_FAST_STEPS, gen))
+    if first_resample is None:
+        raise AssertionError("fastSLAM never resampled")
+    card_to_first, _ = fast_run(dev, FUSION_FAST_STEPS, replay(), stop_at_resample=True)
+    cpu_to_first, cpu_first = fast_run(torch.device("cpu"), FUSION_FAST_STEPS, replay(),
+                                       stop_at_resample=True)
+    fast_gap = float((card_to_first.poses.cpu() - cpu_to_first.poses).abs().max())
+    est_pose, est_map = ss.fastslam_estimate(fast)
+    fast_seen = np.unique(ids[:FUSION_FAST_STEPS][ids[:FUSION_FAST_STEPS] >= 0])
+    fast_pose_err = float(np.linalg.norm(est_pose.cpu().numpy()[:2] - truth[FUSION_FAST_STEPS, :2]))
+    fast_lm_err = np.linalg.norm(est_map.cpu().numpy()[fast_seen] - lms[fast_seen], axis=1)
+    _, fast_ops, _, _ = trace(lambda: fast_run(dev, FUSION_TRACE_STEPS, gen, s=fast))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    stats = {
+        "covariance_filter": {"steps": T, "ms_per_step": cov_s / T * 1e3,
+                              "device_ops_per_step": cov_ops / FUSION_TRACE_STEPS,
+                              "pos_err_mean_m": float(cov_err.mean()),
+                              "pos_err_p90_m": float(np.percentile(cov_err, 90))},
+        "udu_vs_covariance": {"steps": T, "state": n, "ms_per_step_both": ud_s / T * 1e3,
+                              "device_ops_per_step_both": ud_ops / FUSION_TRACE_STEPS,
+                              "max_mean_gap": float(gap[:, 0].max()),
+                              "max_cov_gap": float(gap[:, 1].max()), "pos_err_end_m": ud_err},
+        "ekf_slam": {"steps": T, "slots": FUSION_EKF_SLOTS, "state": 3 + 2 * FUSION_EKF_SLOTS,
+                     "landmarks_seen": int(seen.sum()), "sightings": int(count.sum()),
+                     "ms_per_step": ekf_s / T * 1e3, "device_ops_per_step": ekf_ops / FUSION_TRACE_STEPS,
+                     "card_vs_cpu_steps": FUSION_CPU_STEPS, "card_vs_cpu_max_abs_mean": ekf_gap, "pose_err_end_m": ekf_pose_err,
+                     "landmark_err_mean_m": float(ekf_lm_err.mean()),
+                     "landmark_err_max_m": float(ekf_lm_err.max())},
+        "fastslam": {"steps": FUSION_FAST_STEPS, "particles": FUSION_PARTICLES,
+                     "slots": FUSION_FAST_SLOTS, "ms_per_step": fast_s / FUSION_FAST_STEPS * 1e3,
+                     "device_ops_per_step": fast_ops / FUSION_TRACE_STEPS,
+                     "first_resample_step": first_resample, "cpu_first_resample_step": cpu_first,
+                     "card_vs_cpu_max_abs_pose_to_first_resample": fast_gap,
+                     "pose_err_end_m": fast_pose_err, "landmark_err_mean_m": float(fast_lm_err.mean())},
+        "peak_device_memory_gib": peak, "card": smi,
+    }
+    phase("fusion", json.dumps(stats))
+    checks = {
+        "covariance filter position error": float(cov_err.mean()) < FUSION_POS_ERR,
+        "UdU against covariance filter, means": float(gap[:, 0].max()) < FUSION_UDU_ATOL,
+        "EKF-SLAM card against CPU": ekf_gap < FUSION_CARD_CPU_ATOL,
+        "EKF-SLAM landmarks": float(ekf_lm_err.mean()) < FUSION_LM_ERR,
+        "fastSLAM card against CPU up to the first resample": fast_gap < FUSION_CARD_CPU_ATOL
+        and cpu_first == first_resample,
+        "fastSLAM pose": fast_pose_err < FUSION_FAST_POS_ERR,
+        "fastSLAM landmarks": float(fast_lm_err.mean()) < FUSION_LM_ERR * 2,
+    }
+    missed = [k for k, ok in checks.items() if not ok]
+    if missed:
+        raise AssertionError(f"[fusion] bounds missed: {missed}")
+
+
+def anchor_graph(slam_diag):
+    """``[slam]``'s anchor graph: the odometry chain of the anchors
+    (information ``INFO_ADJ`` times each edge's weight) and the loops the
+    final solve used (``INFO_LOOP``, DCS), from the linear (LAGO)
+    initialization of the odometry estimate, as ``slam_offline`` starts
+    its LM."""
+    from laser_slam_tpu_torch.core import se2
+    from laser_slam_tpu_torch.graph.solve import KERNEL_DCS, KERNEL_HUBER
+    from laser_slam_tpu_torch.runtime.slam import INFO_ADJ, INFO_LOOP
+
+    bank = slam_diag["bank"]
+    used = bank["used"] & bank["act"]
+    odo = slam_diag["odo_anchor_poses"]
+    a = odo.shape[0]
+    seq = np.arange(a - 1)
+    rel_seq = se2.np_relative(odo[:-1], odo[1:])
+    info = np.concatenate([np.eye(3)[None] * INFO_ADJ * slam_diag["seq_weight"][:, None, None],
+                           np.tile(np.eye(3) * INFO_LOOP, (int(used.sum()), 1, 1))])
+    kernel = np.concatenate([np.full(a - 1, KERNEL_HUBER), np.full(int(used.sum()), KERNEL_DCS)])
+    from laser_slam_tpu_torch.graph.solve import linear_initialize
+
+    g = graph_on_card(odo, np.concatenate([seq, bank["src"][used]]),
+                      np.concatenate([seq + 1, bank["dst"][used]]),
+                      np.concatenate([rel_seq, bank["rel"][used]]), info, kernel)
+    return linear_initialize(g)
+
+
+def chain_graph(odo_poses, gt):
+    """All scans' odometry chain (``INFO_ADJ``) and ``PARALLEL_CG_LOOPS``
+    loop edges from the ground truth between scans at least
+    ``PARALLEL_CG_MIN_GAP`` apart whose true positions lie within 1 m
+    (``INFO_LOOP``, DCS), from the linear initialization of the odometry
+    estimate: past ``DENSE_SOLVER_MAX_V`` vertices, the solver's CG route."""
+    from laser_slam_tpu_torch.core import se2
+    from laser_slam_tpu_torch.graph.solve import KERNEL_DCS, KERNEL_HUBER
+    from laser_slam_tpu_torch.runtime.slam import INFO_ADJ, INFO_LOOP
+
+    t = odo_poses.shape[0]
+    d = np.linalg.norm(gt[:, None, :2] - gt[None, :, :2], axis=-1)
+    i, j = np.nonzero((d < 1.0) & (np.arange(t)[None, :] - np.arange(t)[:, None] >= PARALLEL_CG_MIN_GAP))
+    pick = np.sort(np.random.default_rng(0).choice(len(i), PARALLEL_CG_LOOPS, replace=False))
+    i, j = i[pick], j[pick]
+    seq = np.arange(t - 1)
+    meas = np.concatenate([se2.np_relative(odo_poses[:-1], odo_poses[1:]), se2.np_relative(gt[i], gt[j])])
+    info = np.concatenate([np.tile(np.eye(3) * INFO_ADJ, (t - 1, 1, 1)),
+                           np.tile(np.eye(3) * INFO_LOOP, (len(i), 1, 1))])
+    kernel = np.concatenate([np.full(t - 1, KERNEL_HUBER), np.full(len(i), KERNEL_DCS)])
+    from laser_slam_tpu_torch.graph.solve import linear_initialize
+
+    return linear_initialize(graph_on_card(odo_poses, np.concatenate([seq, i]),
+                                           np.concatenate([seq + 1, j]), meas, info, kernel))
+
+
+def graph_on_card(poses, i, j, meas, info, kernel):
+    from laser_slam_tpu_torch.graph.solve import PoseGraph
+
+    dev = torch.device("cuda")
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return PoseGraph(
+        poses=f32(poses), v_active=torch.ones(poses.shape[0], dtype=torch.bool, device=dev),
+        i=torch.as_tensor(i, dtype=torch.int64, device=dev),
+        j=torch.as_tensor(j, dtype=torch.int64, device=dev), meas=f32(meas), info=f32(info),
+        e_active=torch.ones(len(i), dtype=torch.bool, device=dev),
+        kernel=torch.as_tensor(kernel, dtype=torch.int64, device=dev))
+
+
+def solve_parity(mesh, g, label, smi):
+    """``distributed_optimize`` against ``optimize`` on the card: two plain
+    runs give ``optimize``'s own run-to-run spread (its normal equations are
+    sums of atomic adds); the distributed run must fall within
+    ``max(2 × spread, PARALLEL_SOLVE_FLOOR)`` of the first. With PyTorch's
+    deterministic kernels (sorted sums) the spread is gone, and the
+    distributed run must then take the same LM steps to the same poses,
+    bit for bit."""
+    from laser_slam_tpu_torch.graph import solve
+    from laser_slam_tpu_torch.parallel.distributed import distributed_optimize
+
+    infos = [{}, {}, {}]
+    (a, chi_a), t_a = host_s(lambda: solve.optimize(g, 20, info=infos[0]))
+    (b, chi_b), t_b = host_s(lambda: solve.optimize(g, 20, info=infos[1]))
+    (d, chi_d), t_d = host_s(lambda: distributed_optimize(mesh, g, 20, info=infos[2]))
+    spread = float((a.poses - b.poses).abs().max())
+    gap = float((d.poses - a.poses).abs().max())
+    bound = max(2.0 * spread, PARALLEL_SOLVE_FLOOR)
+    # The same three solves with PyTorch's deterministic kernels (sorted
+    # sums instead of atomic adds), for the spread's source.
+    det_infos = [{}, {}, {}]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = [solve.optimize(g, 20, info=det_infos[0])[0].poses,
+               solve.optimize(g, 20, info=det_infos[1])[0].poses,
+               distributed_optimize(mesh, g, 20, info=det_infos[2])[0].poses]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    route = "cg" if g.poses.shape[0] > solve.DENSE_SOLVER_MAX_V else "dense"
+    stats = {"vertices": int(g.poses.shape[0]), "edges": int(g.i.shape[0]), "route": route,
+             "lm": infos, "lm_deterministic": det_infos, "optimize_s": [t_a, t_b],
+             "distributed_optimize_s": t_d,
+             "chi2": [float(chi_a), float(chi_b), float(chi_d)],
+             "optimize_spread_max_abs": spread, "distributed_vs_optimize_max_abs": gap,
+             "bound": bound, "deterministic_spread_max_abs": float((det[0] - det[1]).abs().max()),
+             "deterministic_distributed_vs_optimize_max_abs": float((det[2] - det[0]).abs().max()), "chi2_drop": float(solve.weighted_chi2(g)) - float(chi_d), "card": smi}
+    phase("parallel", f"{label}: {json.dumps(stats)}")
+    if not (gap <= bound and infos[2]["steps"] > 0 and np.isfinite(d.poses.cpu().numpy()).all()
+            and torch.equal(det[2], det[0]) and det_infos[2] == det_infos[0]):
+        raise AssertionError(f"distributed_optimize disagrees with optimize on {label}: {stats}")
+
+
+def parallel_phase(K, log, scans, odo_poses, slam_diag, smi, tmp_dir):
+    """``parallel/`` on a one-rank NCCL group on the card (phase 14).
+    Returns K1's batch-entry launches of its two main-path calls (the
+    sharded PSM over the log's pairs and ``training_step``)."""
+    import torch.distributed as dist
+
+    import torch_multiproc_worker as worker
+    from laser_slam_tpu_torch.core import scan as S
+    from laser_slam_tpu_torch.ops import icp, plicp
+    from laser_slam_tpu_torch.parallel import distributed as D
+    from laser_slam_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError("make_mesh() did not start a one-rank NCCL group")
+    model = log.model
+    ref, cur = pairs(scans, S)
+
+    # a. The sharded matchers against the undistributed calls: at one rank
+    # the gather is a copy, so bit for bit.
+    K.match_psm_fused.launches = 0
+    got, t_sharded = host_s(lambda: D.sharded_batch_match(mesh, model, ref, cur, matcher="psm"))
+    launches = K.match_psm_fused.launches
+    if launches != 1:
+        raise AssertionError(f"sharded PSM launched K1's batch entry {launches} times")
+    # The first collective of a new NCCL group sets its communicator up.
+    times = {"psm": t_sharded,
+             "psm_again": host_s(lambda: D.sharded_batch_match(mesh, model, ref, cur))[1]}
+    for name, plain in (("psm", K.match_psm_fused), ("icp", icp.match_icp),
+                        ("plicp", plicp.match_plicp)):
+        if name != "psm":
+            got, times[name] = host_s(lambda: D.sharded_batch_match(mesh, model, ref, cur, matcher=name))
+        want = plain(model, ref, cur)
+        for field, x, y in zip(want._fields, got, want):
+            if x.device.type != "cuda" or not torch.equal(x, y):
+                raise AssertionError(f"sharded {name} differs from the undistributed call in {field}")
+    phase("parallel", f"sharded_batch_match over {ref.ranges.shape[0]} pairs, one-rank NCCL group: "
+                      f"psm (K1 launches {launches}) / icp / plicp equal to the undistributed calls bit "
+                      f"for bit; seconds {json.dumps(times)}; {smi}")
+
+    # b., c. The edge-sharded LM against optimize: [slam]'s anchor graph
+    # (dense route) and the whole chain with loops (CG route).
+    solve_parity(mesh, anchor_graph(slam_diag), "anchor graph of [slam]", smi)
+    solve_parity(mesh, chain_graph(odo_poses, log.gt_pose[: odo_poses.shape[0]]),
+                 f"odometry chain of all scans + {PARALLEL_CG_LOOPS} loops", smi)
+
+    # d. training_step at B pairs in the dry-run layout.
+    dev = torch.device("cuda")
+    ref_b, cur_b, true_rel = worker.synthetic_pairs(S.LMS211, PARALLEL_TRAIN_PAIRS, seed=0, device=dev)
+    graph = worker.dryrun_graph(PARALLEL_TRAIN_PAIRS, device=dev)
+    K.match_psm_fused.launches = 0
+    (poses, chi, fail), wall = host_s(lambda: D.training_step(mesh, S.LMS211, ref_b, cur_b, graph))
+    train_launches = K.match_psm_fused.launches
+    _, warm = host_s(lambda: D.training_step(mesh, S.LMS211, ref_b, cur_b, graph))
+    fails = int(fail.sum())
+    phase("parallel", f"training_step, {PARALLEL_TRAIN_PAIRS} pairs, {graph.poses.shape[0]} poses, "
+                      f"{graph.i.shape[0]} edges: chi2 {float(chi):.6f}, fails {fails}, K1 launches "
+                      f"{train_launches}, wall {wall:.4f}s (again {warm:.4f}s); {smi}")
+    if fails or train_launches != 1 or not np.isfinite(poses.cpu().numpy()).all():
+        raise AssertionError(f"training_step: {fails} fails, {train_launches} K1 launches")
+    dist.destroy_process_group()
+
+    # Two ranks on the one card: NCCL takes one rank a card, so the two
+    # processes join a gloo group and hand it the card's tensors.
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "torch_multiproc_worker.py"), f"127.0.0.1:{port}", "2",
+         str(pid), "cuda"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+        for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if all(p.returncode == 0 for p in procs):
+        chis = [o.split("chi2=")[1].split()[0] for o in outs]
+        phase("parallel", f"two ranks on one card over gloo with CUDA tensors: chi2 {chis[0]} / "
+                          f"{chis[1]} ({'equal' if chis[0] == chis[1] else 'DIFFERENT'}); {smi}")
+        if chis[0] != chis[1]:
+            raise AssertionError(f"the two ranks' chi2 differ: {chis}")
+    else:
+        tail = " | ".join(ln for ln in outs[0].splitlines()[-6:] if ln.strip())
+        phase("parallel", f"two ranks on one card over gloo with CUDA tensors: not supported here "
+                          f"(rank 0 exit {procs[0].returncode}, rank 1 exit {procs[1].returncode}: "
+                          f"{tail[-600:]}); the two-rank proof is the CPU test "
+                          f"tests/test_torch_multiprocess.py")
+    return launches + train_launches
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def main() -> None:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1614,7 +2107,7 @@ def main() -> None:
             "ate_rpe_s": t_metrics, "map_s": t_map, "card": smi}))
 
         # -- 5. the SLAM main path -------------------------------------------
-        slam_chain_launches = slam_phase(cli, K, log_path, log, smi)
+        slam_chain_launches, slam_diag = slam_phase(cli, K, log_path, log, smi)
 
         # -- 6. the online path ------------------------------------------------
         online_launches = online_phase(K, log, smi, stats, psm, odometry, tmp.name)
@@ -1631,6 +2124,13 @@ def main() -> None:
         # -- 12. the robot application path --------------------------------------
         robot_launches = robot_phase(K, log, smi, tmp.name)
 
+        # -- 13. the Kalman and landmark filters ------------------------------------
+        fusion_phase(smi)
+
+        # -- 14. parallel/ on a one-rank NCCL group ----------------------------------
+        parallel_launches = parallel_phase(K, log, scans, res.poses.cpu().numpy(), slam_diag, smi,
+                                           tmp.name)
+
     # Small input against the plain version on the CPU: the first 300
     # pairs. Float transcendentals differ between the two devices in the
     # last bit, which can flip which pair covers a bin at a segment end in
@@ -1641,16 +2141,17 @@ def main() -> None:
                         psm.match_psm(lms211, a.to("cpu"), b.to("cpu")),
                         f"{lms211.name} x300, plain on cpu")
 
-    # -- 13. the bundled intel-lab log, when present ------------------------
-    if INTEL_LOG.exists():
-        run = cli.main(["odometry", str(INTEL_LOG), "--device", "cuda"])
+    # -- 15. the bundled logs, when present ---------------------------------
+    for name_, recorded in REFERENCE_ODOMETRY_ATE.items():
+        path = Path(REFERENCE_DATA, f"{name_}.log")
+        if not path.exists():
+            phase(name_, f"{path} not present; skipped")
+            continue
+        run = cli.main(["odometry", str(path), "--device", "cuda"])
         ate = float(run.ate.rmse)
-        phase("intel-lab", f"{run.log.n_scans} scans: ATE {ate:.4f} m "
-                           f"(recorded {INTEL_ODOMETRY_ATE} x {ATE_FACTOR})")
-        if not ate < INTEL_ODOMETRY_ATE * ATE_FACTOR:
-            raise AssertionError(f"intel-lab odometry ATE {ate}")
-    else:
-        phase("intel-lab", f"{INTEL_LOG} not present; skipped")
+        phase(name_, f"{run.log.n_scans} scans: ATE {ate:.4f} m (recorded {recorded} x {ATE_FACTOR})")
+        if not ate < recorded * ATE_FACTOR:
+            raise AssertionError(f"{name_} odometry ATE {ate}")
 
     source = "laser_slam_tpu_torch/csrc/psm_kernel.cu"
     replaces = "laser_slam_tpu/ops/pallas/psm_kernel.py:341"
@@ -1668,9 +2169,11 @@ def main() -> None:
         {
             "name": "psm_match_kernel (K1, batch entry: one block per pair)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": batch_launches + online_launches + tcp_launches + robot_launches,
+            "launches": (batch_launches + online_launches + tcp_launches + robot_launches
+                         + parallel_launches),
             "launches_pairwise": batch_launches, "launches_online": online_launches,
             "launches_tcp": tcp_launches, "launches_robot": robot_launches,
+            "launches_parallel": parallel_launches,
             "launches_cli_slam": 0,
             "max_abs_err": max(s["max_abs_err"] for s in stats),
             "ms": batch_ms, "plain_ms": batch_plain_ms,

@@ -15,6 +15,10 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
   error against the ground truth.
 - ``eval``: ATE / RPE of a trajectory file against a log's ground truth,
   as one JSON line.
+- ``view``: replay a log along a trajectory (``--traj``, default its
+  ground truth) in the live viewer; headless unless ``--interactive``,
+  ``--out`` writes an animated GIF, ``--frame`` the last frame's PNG.
+  It runs on the host (numpy and matplotlib).
 - ``serve``: the distributed SLAM server: accept one frontend stream over
   TCP, run the incremental loop-closure backend, push pose corrections
   back; ``--out`` writes the trajectory, ``--diag`` an ``.npz`` with the
@@ -25,7 +29,7 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
 
 ``--device`` picks where the tensors live: ``cuda`` by default, and the
 command fails when there is no CUDA device; ``--device cpu`` asks for the
-CPU.
+CPU. ``view`` takes the option and holds no tensor.
 """
 
 from __future__ import annotations
@@ -259,6 +263,35 @@ def cmd_eval(args) -> dict:
     return out
 
 
+def cmd_view(args):
+    """Replay a log in the live viewer; headless by default, writes a GIF
+    with ``--out`` and the last frame with ``--frame``. Returns the
+    (closed) viewer."""
+    from .viz.live import replay_log
+
+    log = _load(args.log, args.scans)
+    if args.traj:
+        # Clamp to the loaded scan count: a full-log trajectory replayed
+        # with --scans K would otherwise index past log.ranges.
+        poses = np.loadtxt(args.traj, dtype=np.float32)[: log.n_scans]
+    elif log.gt_pose.size:
+        poses = log.gt_pose[: log.n_scans]
+    else:
+        raise SystemExit("no --traj and the log has no ground truth")
+    gt = log.gt_pose[: log.n_scans] if (args.traj and log.gt_pose.size) else None
+    v = replay_log(log, poses, out=args.out, stride=args.stride, gt=gt,
+                   interactive=args.interactive)
+    if args.out:
+        print(f"animation -> {args.out}")
+    if args.frame:
+        v.save_frame(args.frame)
+        print(f"final frame -> {args.frame}")
+    if args.interactive:
+        input("press enter to close...")
+    v.close()
+    return v
+
+
 class ServeRun(NamedTuple):
     """What ``serve`` computed, for callers of :func:`main`."""
 
@@ -385,6 +418,15 @@ def main(argv=None):
     sp.add_argument("--steps", type=int, default=200)
     sp.add_argument("--resolution", type=float, default=0.05)
     sp.set_defaults(fn=cmd_localize)
+
+    sp = sub.add_parser("view", help="live viewer replay of a log (GIF/window)")
+    common(sp)
+    sp.add_argument("--traj", help="trajectory file (default: GT poses)")
+    sp.add_argument("--out", help="write an animated GIF here")
+    sp.add_argument("--frame", help="write the final frame PNG here")
+    sp.add_argument("--stride", type=int, default=25)
+    sp.add_argument("--interactive", action="store_true")
+    sp.set_defaults(fn=cmd_view)
 
     sp = sub.add_parser("eval", help="ATE/RPE of a trajectory vs log ground truth")
     sp.add_argument("log")

@@ -71,6 +71,11 @@ class Scan(NamedTuple):
     def n_beams(self) -> int:
         return self.ranges.shape[-1]
 
+    def points(self, model: LaserModel) -> Tensor:
+        """``[..., N, 2]`` Cartesian points in the sensor frame."""
+        fi = model.bearings(self.ranges.dtype, self.ranges.device)
+        return torch.stack([self.ranges * torch.cos(fi), self.ranges * torch.sin(fi)], dim=-1)
+
     def to(self, device) -> "Scan":
         return Scan(*(x.to(device) for x in self))
 

@@ -16,6 +16,11 @@ def normalize_angle(a: Tensor) -> Tensor:
     return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
 
 
+def identity(batch_shape: tuple = (), dtype=torch.float32, device=None) -> Tensor:
+    """The identity pose, optionally batched."""
+    return torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
+
+
 def compose(a: Tensor, b: Tensor) -> Tensor:
     """Pose composition ``a ⊕ b``: pose ``b`` (given in ``a``'s frame)
     in the world frame."""
@@ -56,6 +61,32 @@ def rotation_matrix(theta: Tensor) -> Tensor:
     return torch.stack(
         [torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2
     )
+
+
+def _v_coeffs(w: Tensor) -> tuple[Tensor, Tensor]:
+    """``sin(w)/w`` and ``(1 - cos(w))/w`` with their Taylor limits for
+    ``|w| < 1e-6``, each branch evaluated on a safe operand."""
+    small = torch.abs(w) < 1e-6
+    w_safe = torch.where(small, 1.0, w)
+    a = torch.where(small, 1.0 - w * w / 6.0, torch.sin(w_safe) / w_safe)
+    b = torch.where(small, w / 2.0, (1.0 - torch.cos(w_safe)) / w_safe)
+    return a, b
+
+
+def exp(tangent: Tensor) -> Tensor:
+    """SE(2) exponential map from ``(vx, vy, omega)`` twists (closed-form
+    V-matrix)."""
+    vx, vy, w = tangent[..., 0], tangent[..., 1], tangent[..., 2]
+    a, b = _v_coeffs(w)
+    return torch.stack([a * vx - b * vy, b * vx + a * vy, normalize_angle(w)], dim=-1)
+
+
+def log(pose: Tensor) -> Tensor:
+    """SE(2) logarithm map (inverse of :func:`exp`)."""
+    x, y, w = pose[..., 0], pose[..., 1], normalize_angle(pose[..., 2])
+    a, b = _v_coeffs(w)
+    det = a * a + b * b
+    return torch.stack([(a * x + b * y) / det, (-b * x + a * y) / det, w], dim=-1)
 
 
 def chain(rel_poses: Tensor, init: Tensor | None = None) -> Tensor:

@@ -14,7 +14,15 @@
 - gauge freedom fixed by anchoring vertex 0.
 
 The LM and CG loops run on the host and read one flag pair per
-iteration (one device sync each). Everything is float32; the 3×3 block
+iteration (one device sync each).
+
+``optimize`` takes an optional ``reduce``: a sum over the ranks of a
+process group (``parallel.distributed.distributed_optimize``). Each rank
+then holds a slice of the edges; the edges' normal equations, χ² and,
+on the CG route, each operator product are summed by ``reduce`` before
+anything else is added (the gauge anchor, the identity blocks of
+inactive vertices, the damping), so every rank solves the same system.
+Without it nothing is reduced. Everything is float32; the 3×3 block
 products are ``einsum``s of elementwise size that never reach a TF32
 matmul, and the dense solve is ``torch.linalg.solve``.
 """
@@ -140,8 +148,18 @@ def _scatter_blocks(rows: Tensor, cols: Tensor, blocks: Tensor, out: Tensor) -> 
     return out.index_put_((rows, cols), blocks, accumulate=True)
 
 
-def assemble_normal_system(g: PoseGraph) -> tuple[Tensor, Tensor, Tensor]:
-    """Dense ``[3V, 3V]`` H, ``[3V]`` b via scatter-adds, plus chi²."""
+def _reduced(reduce, *parts: Tensor) -> tuple[Tensor, ...]:
+    """``parts`` summed over the ranks in one call of ``reduce`` (which may
+    work in place on the flat buffer it is given); unchanged without one."""
+    if reduce is None:
+        return parts
+    flat = reduce(torch.cat([p.reshape(-1) for p in parts]))
+    return tuple(x.view(p.shape) for x, p in zip(torch.split(flat, [p.numel() for p in parts]), parts))
+
+
+def assemble_normal_system(g: PoseGraph, reduce=None) -> tuple[Tensor, Tensor, Tensor]:
+    """Dense ``[3V, 3V]`` H, ``[3V]`` b via scatter-adds, plus chi²
+    (each summed by ``reduce``, when given)."""
     v = g.poses.shape[0]
     Hii, Hjj, Hij, bi, bj, chi = _edge_terms(g)
     H = torch.zeros(v, v, 3, 3, dtype=g.poses.dtype, device=g.poses.device)
@@ -153,12 +171,12 @@ def assemble_normal_system(g: PoseGraph) -> tuple[Tensor, Tensor, Tensor]:
     b.index_add_(0, g.i, bi)
     b.index_add_(0, g.j, bj)
     Hd = H.permute(0, 2, 1, 3).reshape(3 * v, 3 * v)
-    return Hd, b.reshape(3 * v), torch.sum(chi)
+    return _reduced(reduce, Hd, b.reshape(3 * v), torch.sum(chi))
 
 
-def _solve_normal(g: PoseGraph, lam) -> tuple[Tensor, Tensor]:
+def _solve_normal(g: PoseGraph, lam, reduce=None) -> tuple[Tensor, Tensor]:
     """Solve the λ-damped normal equations; returns ``(dx [V,3], chi²)``."""
-    Hd, b, chi2_w = assemble_normal_system(g)
+    Hd, b, chi2_w = assemble_normal_system(g, reduce)
     return _chol_solve_damped(g, Hd, b, lam), chi2_w
 
 
@@ -187,7 +205,7 @@ def _chol_solve_damped(g: PoseGraph, Hd: Tensor, b: Tensor, lam) -> Tensor:
 
 
 def _cg_solve_normal(
-    g: PoseGraph, lam, cg_iters: int = 100, tol: float = 1e-6
+    g: PoseGraph, lam, cg_iters: int = 100, tol: float = 1e-6, reduce=None
 ) -> tuple[Tensor, Tensor]:
     """Matrix-free block-Jacobi-preconditioned CG on the damped normal
     equations — the large-V path. Never materializes H: the operator is
@@ -200,9 +218,9 @@ def _cg_solve_normal(
     def scatter(shape, a, b_):
         return torch.zeros(shape, dtype=dtype, device=dev).index_add_(0, g.i, a).index_add_(0, g.j, b_)
 
-    b = scatter((v, 3), bi, bj)
+    b, diag_blocks, chi2_w = _reduced(
+        reduce, scatter((v, 3), bi, bj), scatter((v, 3, 3), Hii, Hjj), torch.sum(chi))
     # Diagonal terms: gauge anchor, inactive-vertex identity, damping.
-    diag_blocks = scatter((v, 3, 3), Hii, Hjj)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     anchor = torch.zeros(v, dtype=dtype, device=dev)
     anchor[0] = ANCHOR_WEIGHT
@@ -219,7 +237,8 @@ def _cg_solve_normal(
     def hvp(x: Tensor) -> Tensor:                           # [V,3] → [V,3]
         yi = torch.einsum("eij,ej->ei", Hij, x[g.j])
         yj = torch.einsum("eji,ej->ei", Hij, x[g.i])        # Hijᵀ x_i
-        return scatter((v, 3), yi, yj) + torch.einsum("vij,vj->vi", diag_all, x)
+        (off,) = _reduced(reduce, scatter((v, 3), yi, yj))
+        return off + torch.einsum("vij,vj->vi", diag_all, x)
 
     # Block-Jacobi preconditioner: per-vertex 3×3 inverse.
     minv = torch.linalg.inv_ex(diag_all)[0]
@@ -246,7 +265,7 @@ def _cg_solve_normal(
         beta = rz_new / torch.clamp(rz, min=1e-30)
         p = z + beta * p
         rz = rz_new
-    return x, torch.sum(chi)
+    return x, chi2_w
 
 
 def _apply(g: PoseGraph, dx: Tensor) -> Tensor:
@@ -257,9 +276,10 @@ def _apply(g: PoseGraph, dx: Tensor) -> Tensor:
     return torch.where(g.v_active[:, None], new_poses, g.poses)
 
 
-def weighted_chi2(g: PoseGraph) -> Tensor:
-    """Robustly weighted chi² (the LM acceptance objective)."""
-    return _edge_terms(g)[-1].sum()
+def weighted_chi2(g: PoseGraph, reduce=None) -> Tensor:
+    """Robustly weighted chi² (the LM acceptance objective), summed by
+    ``reduce`` when given."""
+    return _reduced(reduce, _edge_terms(g)[-1].sum())[0]
 
 
 def gn_step(g: PoseGraph) -> tuple[PoseGraph, Tensor]:
@@ -273,6 +293,7 @@ def optimize(
     max_iters: int = MAX_GN_ITERS,
     solver: str = "auto",
     info: dict | None = None,
+    reduce=None,
 ) -> tuple[PoseGraph, Tensor]:
     """Levenberg-Marquardt with accept/reject and adaptive λ; returns
     ``(graph, final weighted chi²)``.
@@ -286,18 +307,21 @@ def optimize(
     there (λ in float32), and each iteration reads two flags from the
     device in one transfer. With a dict ``info``, the counts are left in
     it: ``iters`` (iterations run) and ``steps`` (steps accepted).
+    With ``reduce`` (a sum over the ranks of a process group) each rank
+    holds a slice of the edges and every rank takes the same steps: the
+    accept and stop flags come from the reduced χ².
     """
     if solver == "auto":
         solver = "cg" if g.poses.shape[0] > DENSE_SOLVER_MAX_V else "chol"
     solve = _cg_solve_normal if solver == "cg" else _solve_normal
 
-    chi_cur = weighted_chi2(g)
+    chi_cur = weighted_chi2(g, reduce)
     lam = np.float32(1e-4)
     it = stall = steps = 0
     while it < max_iters and stall < 3:
-        dx, _ = solve(g, float(lam))
+        dx, _ = solve(g, float(lam), reduce=reduce)
         cand = g._replace(poses=_apply(g, dx))
-        chi_cand = weighted_chi2(cand)
+        chi_cand = weighted_chi2(cand, reduce)
         # A failed solve yields NaN poses whose residuals are zeroed by
         # nan_to_num, chi² == 0, a perfect score: a candidate must be
         # finite to be accepted.

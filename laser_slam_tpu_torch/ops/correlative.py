@@ -1,12 +1,14 @@
 """Correlative scan matching: exhaustive pose-grid search, batched over
-pairs (port of ``ops/correlative.py``, convolution path).
+pairs (port of ``ops/correlative.py``).
 
 The reference scan is rasterized into a blurred likelihood grid; every
 pose of a (θ, tx, ty) volume is scored by the mean grid value under the
 transformed current scan. For all translations at once this is the
 cross-correlation of the grid with the rotated cloud's raster: one
-grouped ``conv2d`` over the pairs of a batch. A trimmed point-ICP polish
-recovers sub-cell accuracy.
+grouped ``conv2d`` over the pairs of a batch. The gather path
+(:func:`_score_theta`, ``match_correlative(conv=False)``) looks every
+shifted point up instead, one rotation at a time. A trimmed point-ICP
+polish recovers sub-cell accuracy.
 """
 
 from __future__ import annotations
@@ -177,6 +179,44 @@ def correlative_score_volume(
     return vol / denom
 
 
+def _score_theta(
+    grid: Tensor,
+    res: float,
+    half_extent: float,
+    pts: Tensor,      # [B, N, 2]
+    valid: Tensor,    # [B, N]
+    theta: Tensor,    # [B]
+    steps: Tensor,    # [T] translation offsets (multiples of res)
+    base_xy: Tensor,  # [B, 2]
+) -> Tensor:
+    """Score grids ``[B, Tx, Ty]`` for one rotation per pair: the mean
+    point likelihood at every (tx, ty) shift, each shifted point looked up
+    in the grid. The shift moves whole cells, so one floor and integer
+    offsets cover the window. A point counts wherever its shifted cell
+    lies on the grid (the convolution path drops a point whose unshifted
+    cell lies off it, for every shift)."""
+    b, g = grid.shape[0], grid.shape[-1]
+    c, s = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+    rx = pts[..., 0] * c - pts[..., 1] * s + base_xy[:, 0:1]
+    ry = pts[..., 0] * s + pts[..., 1] * c + base_xy[:, 1:2]
+    ix = _cell(rx, half_extent, res)                             # [B, N]
+    iy = _cell(ry, half_extent, res)
+    inv = float(np.float32(1.0) / np.float32(res))
+    off = torch.round(steps * inv).to(torch.int64)               # [T]
+
+    gx = ix[..., None] + off                                     # [B, N, Tx]
+    gy = iy[..., None] + off                                     # [B, N, Ty]
+    okx = (gx >= 0) & (gx < g)
+    oky = (gy >= 0) & (gy < g)
+    flat = gy.clamp(0, g - 1)[:, :, None, :] * g + gx.clamp(0, g - 1)[:, :, :, None]
+    vals = torch.gather(grid.reshape(b, 1, -1).expand(b, flat.shape[1], g * g), 2,
+                        flat.reshape(b, flat.shape[1], -1)).view(flat.shape)
+    ok = valid[:, :, None, None] & okx[..., :, None] & oky[..., None, :]
+    vals = torch.where(ok, vals, 0.0)
+    n = torch.clamp(torch.sum(valid, dim=-1), min=1).to(vals.dtype)
+    return torch.sum(vals, dim=1) / n[:, None, None]             # [B, Tx, Ty]
+
+
 def match_correlative(
     model: LaserModel,
     ref: Scan,
@@ -189,13 +229,17 @@ def match_correlative(
     refine: bool = True,
     prior_xy: float = 0.02,
     prior_theta: float = 0.005,
+    conv: bool = True,
 ) -> CorrelativeResult:
     """Correlative match of ``cur`` against ``ref`` (``[B, N]`` scans)
     over ``±search_xy [m] × ±search_theta [rad]`` centered on
     ``init_pose [B, 3]``, then a trimmed point-ICP polish.
 
     ``prior_xy``/``prior_theta`` add a quadratic penalty on distance from
-    ``init_pose`` that breaks the ties of flat score plateaus.
+    ``init_pose`` that breaks the ties of flat score plateaus. ``conv``
+    picks the score volume: the convolution, or (``False``) the gather
+    path of :func:`_score_theta`, a rotation at a time; the two differ
+    only for points near the grid's edge.
     """
     dtype, dev = cur.ranges.dtype, cur.ranges.device
     b = cur.ranges.shape[0]
@@ -211,9 +255,16 @@ def match_correlative(
     n_steps = int(search_xy / res)
     steps = torch.arange(-n_steps, n_steps + 1, dtype=dtype, device=dev) * res
 
-    score = correlative_score_volume(
-        grid, pts, valid, thetas, n_steps, res, GRID_HALF_EXTENT, init_pose[:, :2]
-    ).transpose(2, 3)                                                  # [B, K, Tx, Ty]
+    if conv:
+        score = correlative_score_volume(
+            grid, pts, valid, thetas, n_steps, res, GRID_HALF_EXTENT, init_pose[:, :2]
+        ).transpose(2, 3)                                              # [B, K, Tx, Ty]
+    else:
+        score = torch.stack([
+            _score_theta(grid, res, GRID_HALF_EXTENT, pts, valid, thetas[:, k], steps,
+                         init_pose[:, :2])
+            for k in range(thetas.shape[1])
+        ], dim=1)                                                      # [B, K, Tx, Ty]
     dth_pen = se2.normalize_angle(thetas - init_pose[:, 2:3]) ** 2
     sq = steps ** 2
     penalty = (

@@ -141,6 +141,7 @@ def match_psm_fused(
     cur: Scan,
     init_pose: torch.Tensor | None = None,
     error_ref: Scan | None = None,
+    banded: bool = False,
 ):
     """Batched PSM match of ``cur`` against ``ref`` (``[B, N]`` scans),
     ``init_pose [B, 3]``; the function of :func:`..psm.match_psm`.
@@ -153,7 +154,13 @@ def match_psm_fused(
     (counted in ``match_psm_fused.launches``; the pairs' iteration counts
     of the last launch stay on the card in ``match_psm_fused.last_iters``)
     or raise.
+
+    The kernel projects densely: ``banded=True`` raises (call
+    ``psm.match_psm(..., banded=True)``, the plain banded matcher).
     """
+    if banded:
+        raise ValueError("match_psm_fused: the kernel projects densely; use "
+                         "psm.match_psm(..., banded=True) for the banded projection")
     dev = cur.ranges.device
     if dev.type == "cpu":
         res = psm.match_psm(model, ref, cur, init_pose)

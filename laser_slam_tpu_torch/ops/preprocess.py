@@ -66,3 +66,8 @@ def preprocess(ranges: Tensor, model: LaserModel) -> Scan:
     pair_ok = pair_connected(r, bad)
     seg = segment_ids(pair_ok)
     return Scan(ranges=r, bad=bad, seg=seg)
+
+
+def preprocess_log(ranges: Tensor, model: LaserModel) -> Scan:
+    """Preprocess a whole ``[T, N]`` log in one batched call."""
+    return preprocess(ranges, model)

@@ -16,7 +16,7 @@ import torch
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
-from .project import Projection, scan_project
+from .project import Projection, scan_project, scan_project_banded
 
 Tensor = torch.Tensor
 
@@ -130,6 +130,7 @@ def match_psm(
     ref: Scan,
     cur: Scan,
     init_pose: Tensor | None = None,
+    banded: bool = False,
 ) -> MatchResult:
     """Match ``cur`` against ``ref`` (preprocessed scans ``[B, N]``);
     returns the relative pose of ``cur`` in ``ref``'s frame, ``[B, 3]``.
@@ -137,7 +138,11 @@ def match_psm(
     One loop step = one orientation + one translation update (two
     reference iterations); the stop counter advances at both half-steps.
     The loop ends early once every pair has converged or failed.
+
+    ``banded=True`` projects with :func:`.project.scan_project_banded`
+    (plain PyTorch on every device; the fused kernel projects densely).
     """
+    project = scan_project_banded if banded else scan_project
     dtype, dev = cur.ranges.dtype, cur.ranges.device
     shape = cur.ranges.shape[:-1]
     if init_pose is None:
@@ -155,7 +160,7 @@ def match_psm(
             break
         # -- orientation half-step --
         small_n = _small_step(small, corr)
-        proj = scan_project(model, cur, pose)
+        proj = project(model, cur, pose)
         dth, fail_o = orientation_search(model, ref, proj)
         ath = pose[..., 2] + dth
         small_n = _small_step(
@@ -163,7 +168,7 @@ def match_psm(
         )
         # -- translation half-step --
         C_n = C / 50.0 if it * 2 + 1 == CHANGE_WEIGHT_ITER + 1 else C
-        proj = scan_project(
+        proj = project(
             model, cur, torch.stack([pose[..., 0], pose[..., 1], ath], dim=-1)
         )
         dx, dy, avg_n, fail_t = translation_estimation(model, ref, proj, C_n)

@@ -1,4 +1,5 @@
-"""Port parity: SE(2) algebra, laser models and the CARMEN reader of
+"""Port parity: SE(2) algebra (with the exponential and logarithm maps),
+laser models, ``Scan.points``, ``preprocess_log`` and the CARMEN reader of
 ``laser_slam_tpu_torch`` against ``laser_slam_tpu`` on the same inputs."""
 
 import dataclasses
@@ -53,6 +54,55 @@ def test_se2_unary_ops(op):
     want = np.asarray(getattr(jse2, op)(jnp.asarray(x)))
     got = getattr(tse2, op)(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=SE2_ATOL)
+
+
+def test_identity_matches_jax():
+    for shape in [(), (4,), (2, 3)]:
+        got, want = tse2.identity(shape), jse2.identity(shape)
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        assert not got.any()
+    a = torch.tensor([1.0, 2.0, 0.5])
+    np.testing.assert_allclose(tse2.compose(a, tse2.identity()).numpy(), a.numpy(), atol=1e-6)
+    np.testing.assert_allclose(tse2.compose(tse2.identity(), a).numpy(), a.numpy(), atol=1e-6)
+
+
+def test_exp_log_roundtrip_matches_jax():
+    """``tests/test_se2.py``'s round trip, and both maps against JAX: twists
+    of all sizes, the |ω| < 1e-6 Taylor branch (ω = 0, ±1e-7, ±9e-7)
+    and angles beyond ±π."""
+    rng = np.random.default_rng(2)
+    tw = (rng.normal(size=(32, 3)) * 0.5).astype(np.float32)
+    tw[:5, 2] = [0.0, 1e-7, -1e-7, 9e-7, -9e-7]
+    back = tse2.log(tse2.exp(torch.from_numpy(tw))).numpy()
+    assert np.allclose(back, tw, atol=1e-4)
+    np.testing.assert_allclose(tse2.exp(torch.from_numpy(tw)).numpy(),
+                               np.asarray(jse2.exp(jnp.asarray(tw))), atol=SE2_ATOL)
+    poses = _poses(rng, 64)
+    poses[:3, 2] = [0.0, 5e-7, 7.5]
+    np.testing.assert_allclose(tse2.log(torch.from_numpy(poses)).numpy(),
+                               np.asarray(jse2.log(jnp.asarray(poses))), atol=SE2_ATOL, rtol=1e-5)
+
+
+def test_exp_zero_rotation():
+    t = torch.tensor([1.0, -2.0, 0.0])
+    assert np.allclose(tse2.exp(t).numpy(), t.numpy(), atol=1e-6)
+    np.testing.assert_array_equal(tse2.exp(t).numpy(), np.asarray(jse2.exp(jnp.asarray(t.numpy()))))
+
+
+@pytest.mark.parametrize("name", ["LMS211", "LMS151"])
+def test_scan_points_and_preprocess_log(name):
+    jm = jscan.PRESETS[name]
+    tm = interop.model_from_fields(dataclasses.asdict(jm))
+    rng = np.random.default_rng(4)
+    r = rng.uniform(0.05, 60.0, (5, jm.n_beams)).astype(np.float32)
+    from laser_slam_tpu.ops.preprocess import preprocess_log as jlog
+    from laser_slam_tpu_torch.ops.preprocess import preprocess_log as tlog
+
+    js_, ts_ = jlog(jnp.asarray(r), jm), tlog(torch.from_numpy(r), tm)
+    for a, b in zip(ts_, js_):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_allclose(ts_.points(tm).numpy(), np.asarray(js_.points(jm)), atol=SE2_ATOL)
+    assert tscan.Scan(*(x[0] for x in ts_)).points(tm).shape == (jm.n_beams, 2)
 
 
 def test_transform_points():

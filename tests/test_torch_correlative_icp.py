@@ -124,3 +124,52 @@ def test_match_correlative():
     # The polished poses recover the true motion, the 95° turn included.
     d = got.pose.numpy() - np.asarray(RELS)
     assert np.abs(d[:, :2]).max() < 0.05 and np.abs(d[:, 2]).max() < 0.02
+
+
+def test_score_theta_gather_path_matches_jax():
+    """The gather path's score grid for one rotation against JAX's, with a
+    point beyond the grid's edge that a shift brings back in: the gather
+    path credits it at that shift, the convolution path drops it."""
+    jref, tref, jcur, tcur = scans(RELS[:2], seed=38)
+    he, res = tc.GRID_HALF_EXTENT, tc.GRID_RES
+    # Pair 0's reference gets a point in the grid's last column; its
+    # current scan a point half a cell past the edge, on the same row.
+    ref_pts, ref_ok = tc.scan_to_points(TMODEL, tref)
+    pts, ok = tc.scan_to_points(TMODEL, tcur)
+    ref_pts, ref_ok, pts, ok = (x.clone() for x in (ref_pts, ref_ok, pts, ok))
+    ref_pts[0, 0] = torch.tensor([he - 0.05, 1.05])
+    pts[0, 0] = torch.tensor([he + 0.05, 1.05])
+    ref_ok[0, 0] = ok[0, 0] = True
+    grid = tc.build_likelihood_grid_points(ref_pts, ref_ok)
+    jgrid = jax.vmap(jc.build_likelihood_grid_points)(jnp.asarray(ref_pts.numpy()),
+                                                      jnp.asarray(ref_ok.numpy()))
+    np.testing.assert_allclose(grid.numpy(), np.asarray(jgrid), atol=VOLUME_ATOL)
+    theta = torch.tensor([0.0, 0.3])
+    steps = torch.arange(-3, 4, dtype=torch.float32) * res
+    base = torch.tensor([[0.0, 0.0], [0.1, -0.2]])
+    got = tc._score_theta(grid, res, he, pts, ok, theta, steps, base)
+    jsteps = jnp.asarray(steps.numpy())
+    want = jax.vmap(lambda g, p, v, t, b: jc._score_theta(g, res, he, p, v, t, jsteps, b))(
+        jgrid, jnp.asarray(pts.numpy()), jnp.asarray(ok.numpy()), jnp.asarray(theta.numpy()),
+        jnp.asarray(base.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=VOLUME_ATOL)
+    conv = tc.correlative_score_volume(grid, pts, ok, theta[:, None], 3, res, he, base)[:, 0]
+    conv = conv.transpose(1, 2)                             # [B, Tx, Ty]
+    # Pair 1 has no point off the grid: both paths agree everywhere.
+    np.testing.assert_allclose(got[1].numpy(), conv[1].numpy(), atol=VOLUME_ATOL)
+    # Pair 0's outside point lands in the grid at the shifts x ≤ -1 cell
+    # (index 0-2 of the 7), on the reference's point at x = -1 cell.
+    extra = (got[0] - conv[0]) * float(ok[0].sum())
+    assert float(extra[2, 3]) > 0.9
+    assert float(extra[:3].min()) >= -1e-4 and float(extra[3:].abs().max()) < 1e-4
+
+
+def test_match_correlative_gather_path_matches_jax():
+    """``match_correlative(conv=False)`` against JAX's gather path."""
+    jref, tref, jcur, tcur = scans(RELS, seed=37)
+    want = jax.jit(jax.vmap(lambda a, b: jc.match_correlative(
+        MODEL, a, b, search_xy=1.2, n_theta=24, conv=False)))(jref, jcur)
+    got = tc.match_correlative(TMODEL, tref, tcur, search_xy=1.2, n_theta=24, conv=False)
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=POSE_ATOL)
+    np.testing.assert_allclose(got.score.numpy(), np.asarray(want.score), atol=VOLUME_ATOL)
+    np.testing.assert_array_equal(got.fail.numpy(), np.asarray(want.fail))

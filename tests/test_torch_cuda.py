@@ -3,7 +3,10 @@ card: the batch entry against ``psm.match_psm``, its error-index epilogue
 against ``psm.error_index``, the keyframe-chain entry against the step loop
 of ``odometry.odometry_keyframe``. Then the loop-closure backend on the
 card: the chunk verifier against the same call on the CPU, and ``cli slam``
-twice on a short log. These tests need a CUDA device and skip
+twice on a short log. Then the later paths on the card: the online
+session, localization, the ICP matchers, the loopback, the robot path,
+the landmark filters against the CPU with the same draws, and
+``parallel/`` on a one-rank NCCL group. These tests need a CUDA device and skip
 without one; they import no jax, so that they run where only PyTorch is
 installed:
 
@@ -530,3 +533,122 @@ def test_task_engine_runs_on_cuda_by_default(cuda):
     cmd = eng.step(np.array([3.5, 6.0, np.pi / 2], np.float32), S.Scan(*(x[0] for x in scan)))
     assert eng.state in (TaskState.TURNING, TaskState.TRACKING)
     assert cmd.v.device.type == "cuda"
+
+
+# -- the landmark filters and parallel/ ----------------------------------------------
+
+def test_landmark_filters_on_the_card_against_the_cpu(cuda):
+    """EKF-SLAM (12 landmark slots) and a fastSLAM block (512 particles)
+    stepped on the card and on the CPU with the same observations and the
+    same draws (one CPU generator): EKF means and covariances agree to
+    float32 round-off of the products (1e-4 after 40 steps); fastSLAM's
+    poses to 1e-5 and its log-weights to 1e-3 relative before any
+    resample."""
+    from laser_slam_tpu_torch.fusion import slam_schemes as ss
+
+    rng = np.random.default_rng(9)
+    lms = rng.uniform(-4, 4, (12, 2)).astype(np.float32)
+    ekf = {d: ss.ekfslam_init(torch.zeros(3), 12, device=d) for d in ("cpu", "cuda")}
+    fast = {d: ss.fastslam_init(torch.zeros(3), 512, 12, device=d) for d in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(3)
+    pose = np.zeros(3, np.float32)
+    for _ in range(40):
+        m = np.float32([0.1, 0.0, 0.06])
+        pose = se2.np_compose(pose, m).astype(np.float32)
+        noise = torch.randn(512, 3, generator=gen)
+        sigma = torch.tensor([0.01, 0.01, 0.005])
+        seen = rng.choice(12, 4, replace=False)
+        zs = []
+        for k in seen:
+            d = lms[k] - pose[:2]
+            zs.append(np.float32([np.hypot(*d), np.arctan2(d[1], d[0]) - pose[2]])
+                      + rng.normal(0, 0.01, 2).astype(np.float32))
+        for dev in ("cpu", "cuda"):
+            e = ss.ekfslam_predict(ekf[dev], torch.tensor(m, device=dev), 1e-4)
+            f = ss.fastslam_predict_with_noise(fast[dev], torch.tensor(m, device=dev), sigma, noise)
+            for k, z in zip(seen, zs):
+                zt = torch.tensor(z, device=dev)
+                e = ss.ekfslam_observe(e, torch.tensor(int(k), device=dev), zt, 1e-3)
+                f = ss.fastslam_observe(f, torch.tensor(int(k), device=dev), zt, 1e-3)
+            ekf[dev], fast[dev] = e, f
+    np.testing.assert_allclose(ekf["cuda"].mean.cpu().numpy(), ekf["cpu"].mean.numpy(), atol=1e-4)
+    np.testing.assert_array_equal(ekf["cuda"].lm_valid.cpu().numpy(), ekf["cpu"].lm_valid.numpy())
+    np.testing.assert_allclose(fast["cuda"].poses.cpu().numpy(), fast["cpu"].poses.numpy(), atol=1e-5)
+    np.testing.assert_allclose(fast["cuda"].log_w.cpu().numpy(), fast["cpu"].log_w.numpy(), rtol=1e-3,
+                               atol=1e-3)
+    assert np.abs(ekf["cuda"].landmarks().cpu().numpy() - lms).max() < 0.2
+    # Resample indices: a float32 cumsum on the card sums in another order
+    # than the CPU's, so an index at a CDF step can differ by one.
+    u0 = torch.rand((), generator=gen) / 512
+    idx = []
+    for d in ("cpu", "cuda"):
+        tagged = fast[d]._replace(poses=torch.arange(512, device=d, dtype=torch.float32)[:, None]
+                                  .expand(512, 3).contiguous())
+        idx.append(ss.fastslam_resample_at(tagged, u0.to(d)).poses[:, 0].cpu().numpy())
+    assert (idx[0] != idx[1]).mean() < 0.01 and np.abs(idx[0] - idx[1]).max() <= 1
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    import torch.distributed as dist
+
+    from laser_slam_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an NCCL group)")
+    mesh = make_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_sharded_psm_at_one_rank_is_the_kernel(cuda, nccl_mesh):
+    """``sharded_batch_match(psm)`` on a one-rank NCCL group launches K1's
+    batch entry once and returns its result bit for bit (the gather is a
+    copy)."""
+    from laser_slam_tpu_torch.parallel.distributed import sharded_batch_match
+
+    ref, cur, rel = pairs(S.LMS211, 64, 27, cuda)
+    before = psm_kernel.match_psm_fused.launches
+    got = sharded_batch_match(nccl_mesh, S.LMS211, ref, cur)
+    assert psm_kernel.match_psm_fused.launches == before + 1
+    want = psm_kernel.match_psm_fused(S.LMS211, ref, cur)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    with pytest.raises(ValueError, match="banded"):
+        psm_kernel.match_psm_fused(S.LMS211, ref, cur, banded=True)
+
+
+@pytest.mark.parametrize("v", [60, 1100])
+def test_distributed_optimize_on_the_card_is_optimize(cuda, nccl_mesh, v):
+    """The edge-sharded LM at one rank against ``optimize`` on the card,
+    dense and CG routes: within the atomic sums' run-to-run spread (held
+    at 1e-4 m; where an accept decision lies in a flat valley the two may
+    take a step more or less), and with PyTorch's deterministic kernels
+    the same steps and the same poses bit for bit."""
+    from laser_slam_tpu_torch.graph.solve import PoseGraph, optimize
+    from laser_slam_tpu_torch.parallel.distributed import distributed_optimize
+
+    rng = np.random.default_rng(v)
+    gt = np.cumsum(rng.normal(0, [0.3, 0.3, 0.1], (v, 3)), axis=0).astype(np.float32)
+    i = np.concatenate([np.arange(v - 1), rng.integers(0, v // 2, v // 4)])
+    j = np.concatenate([np.arange(1, v), rng.integers(v // 2, v, v // 4)])
+    meas = se2.np_relative(gt[i], gt[j]).astype(np.float32) + rng.normal(0, 0.02, (len(i), 3)).astype(np.float32)
+    poses = gt + rng.normal(0, 0.2, gt.shape).astype(np.float32)
+    poses[0] = gt[0]
+    t = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=cuda)
+    g = PoseGraph(t(poses), t(np.ones(v, bool)), t(i, torch.int64), t(j, torch.int64), t(meas),
+                  t(np.tile(np.eye(3, dtype=np.float32) * 20, (len(i), 1, 1))),
+                  t(np.ones(len(i), bool)))
+    got, chi = distributed_optimize(nccl_mesh, g, 10)
+    want, want_chi = optimize(g, 10)
+    np.testing.assert_allclose(got.poses.cpu().numpy(), want.poses.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(float(chi), float(want_chi), rtol=1e-4)
+    info_d, info_p = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, chi = distributed_optimize(nccl_mesh, g, 10, info=info_d)
+        want, want_chi = optimize(g, 10, info=info_p)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert info_d == info_p and info_d["steps"] > 0
+    assert torch.equal(got.poses, want.poses) and torch.equal(chi, want_chi)

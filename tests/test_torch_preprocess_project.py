@@ -105,3 +105,56 @@ def test_scan_project_unbatched_matches_batched():
     single = tproj.scan_project(m, type(s)(*(x[1] for x in s)), pose[1])
     for a, b in zip(batched, single):
         np.testing.assert_array_equal(a[1].numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_scan_project_banded(name):
+    """The banded projection against JAX's (rotations of up to ±0.6 rad:
+    shifts of up to 60 bins), and against the dense one, which it equals
+    where every covering pair lies inside the band."""
+    jm = jscan.PRESETS[name]
+    tm = interop.model_from_fields(dataclasses.asdict(jm))
+    rng = np.random.default_rng(16)
+    r = room_scans(jm, random_poses(rng, 10), seed=17)
+    js = jpp.preprocess(jnp.asarray(r), jm)
+    ts = interop.scan_from_numpy(*(np.asarray(x) for x in js))
+    poses = np.concatenate([rng.normal(0, 0.2, (10, 2)), rng.uniform(-0.6, 0.6, (10, 1))],
+                           1).astype(np.float32)
+    jp = jax.jit(jax.vmap(lambda s, p: jproj.scan_project_banded(jm, s, p)))(js, jnp.asarray(poses))
+    tp = tproj.scan_project_banded(tm, ts, torch.from_numpy(poses))
+    np.testing.assert_array_equal(tp.empty.numpy(), np.asarray(jp.empty))
+    np.testing.assert_array_equal(tp.occluded.numpy(), np.asarray(jp.occluded))
+    np.testing.assert_allclose(tp.new_r.numpy(), np.asarray(jp.new_r), atol=RANGE_ATOL)
+    dense = tproj.scan_project(tm, ts, torch.from_numpy(poses))
+    same = (dense.new_r == tp.new_r).all(-1)
+    assert same.sum() >= 8, same
+    single = tproj.scan_project_banded(tm, type(ts)(*(x[3] for x in ts)), torch.from_numpy(poses[3]))
+    for a, b in zip(tp, single):
+        np.testing.assert_array_equal(a[3].numpy(), b.numpy())
+
+
+def test_match_psm_banded_matches_jax():
+    """``match_psm(banded=True)`` against JAX's on pairs of the test room,
+    at ``tests/test_torch_psm.py``'s bounds; the fused wrapper refuses it."""
+    from laser_slam_tpu.ops import psm as jpsm
+    from laser_slam_tpu_torch.ops import psm as tpsm
+    from laser_slam_tpu_torch.ops.cuda import psm_kernel
+
+    jm = jscan.LMS211
+    tm = interop.model_from_fields(dataclasses.asdict(jm))
+    rng = np.random.default_rng(18)
+    p0 = random_poses(rng, 8)
+    rel = np.stack([rng.normal(0, 0.06, 8), rng.normal(0, 0.06, 8), rng.normal(0, 0.05, 8)], 1)
+    from laser_slam_tpu.core import se2 as jse2
+
+    ja = jpp.preprocess(jnp.asarray(room_scans(jm, p0, seed=19)), jm)
+    jb = jpp.preprocess(jnp.asarray(room_scans(jm, jse2.np_compose(p0, rel), seed=20)), jm)
+    ta, tb = (interop.scan_from_numpy(*(np.asarray(x) for x in s)) for s in (ja, jb))
+    want = jax.jit(jax.vmap(lambda a, b: jpsm.match_psm(jm, a, b, banded=True)))(ja, jb)
+    got = tpsm.match_psm(tm, ta, tb, banded=True)
+    np.testing.assert_array_equal(got.fail.numpy(), np.asarray(want.fail))
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=1e-4)
+    np.testing.assert_allclose(got.err.numpy(), np.asarray(want.err), rtol=1e-4)
+    assert not got.fail.any() and np.median(np.abs(got.pose.numpy() - rel)) < 0.01
+    with pytest.raises(ValueError, match="banded"):
+        psm_kernel.match_psm_fused(tm, ta, tb, banded=True)

@@ -158,8 +158,9 @@ def test_draw_writes_the_map(small_log, tmp_path):
 
 def test_port_imports_without_jax():
     """Every module of the port (and chip_smoke.py) imports with jax made
-    unimportable, the CLI builds its parser (the ``slam`` subcommand reads
-    ``SlamConfig``'s defaults), and no port source names jax."""
+    unimportable, and without matplotlib, PIL or a process group; the CLI
+    builds its parser (the ``slam`` subcommand reads ``SlamConfig``'s
+    defaults), and no port source names jax."""
     names = [m.name for m in pkgutil.walk_packages(
         laser_slam_tpu_torch.__path__, "laser_slam_tpu_torch.")]
     assert {"laser_slam_tpu_torch." + n for n in (
@@ -172,22 +173,26 @@ def test_port_imports_without_jax():
         "features.detector", "features.descriptor", "features.ransac",
         "nav.planner", "nav.local_map", "nav.local_planner", "nav.trajectory", "core.refmath",
         "app.config", "app.logfile", "app.monitor", "app.beacon", "app.serial_ctrl", "app.portal",
-        "app.task", "app.mission", "app.robot")} <= set(names)
+        "app.task", "app.mission", "app.robot", "fusion.kalman", "fusion.slam_schemes",
+        "parallel.mesh", "parallel.multihost", "parallel.distributed", "io.image_map",
+        "io.rawseed", "io.gps", "io.sick_driver", "viz.live")} <= set(names)
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['laser_slam_tpu'] = None\n"
+        "sys.modules['matplotlib'] = None; sys.modules['PIL'] = None\n"
         f"import importlib\nfor n in {names!r} + ['chip_smoke']:\n    importlib.import_module(n)\n"
         "from laser_slam_tpu_torch import cli\n"
-        "for sub in ('slam', 'odometry', 'draw', 'localize', 'eval', 'serve', 'client'):\n"
+        "for sub in ('slam', 'odometry', 'draw', 'localize', 'eval', 'serve', 'client', 'view'):\n"
         "    try:\n        cli.main([sub, '--help'])\n"
         "    except SystemExit as e:\n        assert e.code == 0\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v)\n"
+        "import torch.distributed as dist\nassert not dist.is_initialized()\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(names) >= 71
+    assert len(names) >= 82
     for path in [*(ROOT / "laser_slam_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
-                 ROOT / "tools" / "synthetic_log.py"]:
+                 ROOT / "tools" / "synthetic_log.py", ROOT / "tools" / "torch_multiproc_worker.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "laser_slam_tpu." not in text.replace("laser_slam_tpu_torch", ""), path
