@@ -387,10 +387,13 @@ def trace(fn, host_ops=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side events; a record_function range's mirror on the device
-    # timeline is not an operation.
+    # timeline (the hot spots and the program's other spans) is not an
+    # operation.
+    ranges = set(HOT_SPOTS) | {e.name for e in prof.events()
+                               if getattr(e, "is_user_annotation", False)}
     ops = [e for e in prof.events()
            if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start
-           and e.name not in HOT_SPOTS]
+           and e.name not in ranges]
     if host_ops is not None:
         for e in prof.events():
             if str(e.device_type).endswith("CPU") and (e.name in HOT_SPOTS or e.name in ATEN_OPS):

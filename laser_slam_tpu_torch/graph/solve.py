@@ -33,9 +33,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import se2
+from ..utils.profiling import trace
 
 Tensor = torch.Tensor
 
@@ -199,7 +199,7 @@ def _chol_solve_damped(g: PoseGraph, Hd: Tensor, b: Tensor, lam) -> Tensor:
     Hd = Hd + torch.diag(diag_fix + lam * diag_h + floor)
     # LU, not Cholesky: a gauge-anchored normal matrix reaches condition
     # numbers of 1e6 and more, where a float32 Cholesky fails.
-    with record_function("h4_solve"):
+    with trace("h4_solve"):
         dx, _ = torch.linalg.solve_ex(Hd, -b[:, None])
     return dx.reshape(v, 3)
 
@@ -408,7 +408,7 @@ def linear_initialize(g: PoseGraph) -> PoseGraph:
         Hd = H.permute(0, 2, 1, 3).reshape(2 * v, 2 * v) + torch.diag(diag)
         rhs = -b
         rhs[0] = rhs[0] + anchor_val * lin_anchor
-        with record_function("h4_solve"):
+        with trace("h4_solve"):
             x, _ = torch.linalg.solve_ex(Hd, rhs.reshape(-1, 1))
         return x.reshape(v, 2)
 

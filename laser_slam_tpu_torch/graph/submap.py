@@ -19,10 +19,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
+from ..utils.profiling import trace
 from .loop_closure import LoopCandidates, VerifiedLoops, icp_both_ways, icp_loop_gates
 
 Tensor = torch.Tensor
@@ -73,7 +73,7 @@ def reduce_group(
     sentinel = 1 << 30
     key = torch.where(ok, q[..., 0] * 8192 + q[..., 1], sentinel)
 
-    with record_function("h4_sort"):
+    with trace("h4_sort"):
         key_s, order = torch.sort(key, dim=-1, stable=True)
         first = torch.cat(
             [torch.ones_like(ok[:, :1]), key_s[:, 1:] != key_s[:, :-1]], dim=-1

@@ -37,6 +37,7 @@ from ..core import se2
 from ..core.scan import LaserModel
 from ..mapping.occupancy import OccupancyGrid
 from ..ops.icp_points import match_icp_points
+from ..utils.profiling import trace
 from .raycast import (
     SIMULATE_BYTES_PER_SAMPLE,
     beam_likelihood,
@@ -134,9 +135,10 @@ def predict_with_noise(
 ) -> ParticleState:
     """Propagate every particle by the odometry increment ``rel [3]``
     plus the given standard-normal draws, scaled."""
-    moved = se2.compose(state.poses, rel[None, :])
-    return ParticleState(
-        poses=_jitter(moved, noise_xy, noise_t, sigma_xy, sigma_theta), log_w=state.log_w)
+    with trace("pf.predict"):
+        moved = se2.compose(state.poses, rel[None, :])
+        return ParticleState(
+            poses=_jitter(moved, noise_xy, noise_t, sigma_xy, sigma_theta), log_w=state.log_w)
 
 
 def predict(
@@ -165,8 +167,9 @@ def update_field(
     valid: Tensor,
 ) -> ParticleState:
     """Likelihood-field weight update (one batched gather of ``[P, N]``)."""
-    return _reweight(
-        state, endpoint_likelihood(field, grid.spec, model, state.poses, ranges, valid))
+    with trace("pf.update"):
+        return _reweight(
+            state, endpoint_likelihood(field, grid.spec, model, state.poses, ranges, valid))
 
 
 def update_beam(
@@ -256,9 +259,10 @@ def systematic_resample(state: ParticleState, generator: torch.Generator) -> Par
 def maybe_resample_at(state: ParticleState, u: Tensor | float) -> ParticleState:
     """Resample (from the uniform draw ``u``) when Neff < 0.5·P; a select
     on the device, no host read."""
-    do = neff(state) < NEFF_RESAMPLE_FRACTION * state.n
-    resampled = systematic_resample_at(state, u)
-    return ParticleState(*(torch.where(do, a, b) for a, b in zip(resampled, state)))
+    with trace("pf.resample"):
+        do = neff(state) < NEFF_RESAMPLE_FRACTION * state.n
+        resampled = systematic_resample_at(state, u)
+        return ParticleState(*(torch.where(do, a, b) for a, b in zip(resampled, state)))
 
 
 def maybe_resample(state: ParticleState, generator: torch.Generator) -> ParticleState:
@@ -269,15 +273,16 @@ def maybe_resample(state: ParticleState, generator: torch.Generator) -> Particle
 def estimate(state: ParticleState, top_k: int = TOP_K) -> Tensor:
     """Weighted mean over the top-K particles with circular angle
     averaging."""
-    k = min(top_k, state.n)
-    vals, idx = _top(state.log_w, k)
-    w = torch.exp(vals - torch.logsumexp(vals, dim=0))
-    sel = state.poses[idx]
-    x = torch.sum(w * sel[:, 0])
-    y = torch.sum(w * sel[:, 1])
-    c = torch.sum(w * torch.cos(sel[:, 2]))
-    s = torch.sum(w * torch.sin(sel[:, 2]))
-    return torch.stack([x, y, torch.atan2(s, c)])
+    with trace("pf.estimate"):
+        k = min(top_k, state.n)
+        vals, idx = _top(state.log_w, k)
+        w = torch.exp(vals - torch.logsumexp(vals, dim=0))
+        sel = state.poses[idx]
+        x = torch.sum(w * sel[:, 0])
+        y = torch.sum(w * sel[:, 1])
+        c = torch.sum(w * torch.cos(sel[:, 2]))
+        s = torch.sum(w * torch.sin(sel[:, 2]))
+        return torch.stack([x, y, torch.atan2(s, c)])
 
 
 def dispersion(state: ParticleState, top_k: int = TOP_K) -> Tensor:

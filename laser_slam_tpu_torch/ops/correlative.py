@@ -19,10 +19,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
+from ..utils.profiling import trace
 from .icp_points import match_icp_points, scan_to_points
 
 Tensor = torch.Tensor
@@ -162,7 +162,7 @@ def correlative_score_volume(
     n_valid = torch.clamp(torch.sum(ok, dim=-1), min=1).to(dtype)      # [B]
     if not overlap_norm:
         pad = F.pad(grid, (n_steps,) * 4)[None]                        # [1, B, ., .]
-        with record_function("h2_score_volume_conv"):
+        with trace("h2_score_volume_conv"):
             vol = _conv2d(pad, raster, b).view(b, k, t, t)
         return vol / n_valid[:, None, None, None]
 
@@ -172,7 +172,7 @@ def correlative_score_volume(
     )[:, 0]
     both = torch.stack([grid, cover])                                  # [2, B, G, G]
     pad = F.pad(both, (n_steps,) * 4)
-    with record_function("h2_score_volume_conv"):
+    with trace("h2_score_volume_conv"):
         out = _conv2d(pad, raster, b).view(2, b, k, t, t)
     vol, n_overlap = out[0], out[1]
     denom = torch.maximum(n_overlap, overlap_floor * n_valid[:, None, None, None])
@@ -358,7 +358,7 @@ def correlative_top_peaks(
         grid, cur_pts, cur_ok, thetas, n_steps, res, half_extent,
         init_pose[:, :2], overlap_norm=overlap_norm,
     )                                                      # [B, K, Ty, Tx]
-    with record_function("h3_peak_nms"):
+    with trace("h3_peak_nms"):
         # max_pool3d pads with -inf, as a "SAME" max window does.
         pooled = F.max_pool3d(vol[:, None], (5, 3, 3), stride=1, padding=(2, 1, 1))[:, 0]
         flat = torch.where(vol >= pooled, vol, -torch.inf).reshape(vol.shape[0], -1)

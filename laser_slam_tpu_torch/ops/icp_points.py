@@ -13,9 +13,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import se2
+from ..utils.profiling import trace
 
 Tensor = torch.Tensor
 
@@ -82,7 +82,7 @@ def match_icp_points(
     n_outer = max((iters + steps_per_nn - 1) // steps_per_nn, 1)
     for it in range(n_outer):
         q = se2.transform_points(pose, cur_pts)                       # [B, N, 2]
-        with record_function("h1_nearest_two"):
+        with trace("h1_nearest_two"):
             dx = q[:, :, 0, None] - rx
             dy = q[:, :, 1, None] - ry
             d2 = torch.where(ref_ok, dx * dx + dy * dy, torch.inf)    # [B, N, M]

@@ -19,6 +19,7 @@ import torch
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
+from ..utils.profiling import profiler, trace
 from .correlative import match_correlative
 from .cuda.psm_kernel import match_psm_fused, odometry_chain_fused
 from .icp import match_icp
@@ -223,17 +224,25 @@ def odometry_keyframe(
     """
     if chain not in ("fused", "steps"):
         raise ValueError(f"odometry_keyframe: chain must be 'fused' or 'steps', got {chain!r}")
+    with trace("odometry.keyframe"):
+        return _keyframe(model, scans, deep_chunk, timestamps, chain)
+
+
+def _keyframe(model: LaserModel, scans: Scan, deep_chunk: int, timestamps, chain: str
+              ) -> OdometryResult:
     dev, dtype = scans.ranges.device, scans.ranges.dtype
     t = scans.ranges.shape[0]
     zero = torch.zeros(3, dtype=dtype, device=dev)
-    if dev.type == "cuda" and chain == "fused":
-        poses, switched, discarded, deep_flag = odometry_chain_fused(
-            model, scans, KEYFRAME_ERR_THRESH, 2.0 * KEYFRAME_ERR_THRESH)
-    else:
-        poses, switched, discarded, deep_flag = _chain_steps(model, scans)
-    poses = torch.cat([zero[None], poses])
+    with trace("odometry.chain"):
+        if dev.type == "cuda" and chain == "fused":
+            poses, switched, discarded, deep_flag = odometry_chain_fused(
+                model, scans, KEYFRAME_ERR_THRESH, 2.0 * KEYFRAME_ERR_THRESH)
+        else:
+            poses, switched, discarded, deep_flag = _chain_steps(model, scans)
+        poses = torch.cat([zero[None], poses])
 
-    need = (deep_flag | discarded).cpu().numpy()       # steps 1..T-1
+    with trace("odometry.flags_fetch"):             # waits for pass 1
+        need = (deep_flag | discarded).cpu().numpy()   # steps 1..T-1
     weak = need.copy()
     disc = np.zeros(t - 1, bool)
     frac = np.zeros(t - 1, bool)
@@ -246,48 +255,53 @@ def odometry_keyframe(
         dt_big = np.zeros(t - 1, bool)
 
     idx = np.nonzero(need)[0]
+    idxp = np.concatenate([idx, np.zeros((-idx.size) % deep_chunk, idx.dtype)])
+    profiler.count("odometry.rematch_steps", idx.size)
+    profiler.count("odometry.rematch_rows", idxp.size)     # with the padding
     if idx.size:
-        pad = (-idx.size) % deep_chunk
-        idxp = np.concatenate([idx, np.zeros(pad, idx.dtype)])
-        res = []
-        for i in range(0, idxp.size, deep_chunk):
-            sl = torch.as_tensor(idxp[i:i + deep_chunk], device=dev)
-            res.append(_deep_rematch_chunk(
-                model,
-                Scan(*(x[sl] for x in scans)),
-                Scan(*(x[sl + 1] for x in scans)),
-                se2.relative(poses[sl], poses[sl + 1]),
-                torch.as_tensor(dt_big[idxp[i:i + deep_chunk]], device=dev),
-            ))
-        # Padded rows are thrown away.
-        pose_r, fail_r, weak_r, frac_r = (torch.cat(x)[: idx.size] for x in zip(*res))
-        fail_np = fail_r.cpu().numpy()
+        with trace("odometry.rematch"):
+            res = []
+            for i in range(0, idxp.size, deep_chunk):
+                sl = torch.as_tensor(idxp[i:i + deep_chunk], device=dev)
+                res.append(_deep_rematch_chunk(
+                    model,
+                    Scan(*(x[sl] for x in scans)),
+                    Scan(*(x[sl + 1] for x in scans)),
+                    se2.relative(poses[sl], poses[sl + 1]),
+                    torch.as_tensor(dt_big[idxp[i:i + deep_chunk]], device=dev),
+                ))
+            # Padded rows are thrown away.
+            pose_r, fail_r, weak_r, frac_r = (torch.cat(x)[: idx.size] for x in zip(*res))
+        with trace("odometry.rematch_fetch"):
+            fail_np, weak_np, frac_np = (x.cpu().numpy() for x in (fail_r, weak_r, frac_r))
         ok = ~fail_np
-        weak[idx] = weak_r.cpu().numpy() | ~ok | dt_big[idx]
+        weak[idx] = weak_np | ~ok | dt_big[idx]
         disc[idx] = ~ok
-        frac[idx] = frac_r.cpu().numpy() | ~ok
+        frac[idx] = frac_np | ~ok
 
-        rel = se2.relative(poses[:-1], poses[1:])
-        steps = torch.as_tensor(idx, device=dev)
-        use = torch.as_tensor(ok, device=dev)
-        rel[steps] = torch.where(use[:, None], pose_r, rel[steps])
-        poses = torch.cat([zero[None], se2.chain(rel)])
+    with trace("odometry.rechain"):
+        if idx.size:
+            rel = se2.relative(poses[:-1], poses[1:])
+            steps = torch.as_tensor(idx, device=dev)
+            use = torch.as_tensor(ok, device=dev)
+            rel[steps] = torch.where(use[:, None], pose_r, rel[steps])
+            poses = torch.cat([zero[None], se2.chain(rel)])
 
-    rematched = np.zeros(t - 1, bool)
-    rematched[idx] = True
+        rematched = np.zeros(t - 1, bool)
+        rematched[idx] = True
 
-    def flags(x) -> Tensor:
-        x = torch.as_tensor(x, device=dev)
-        return torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), x])
+        def flags(x) -> Tensor:
+            x = torch.as_tensor(x, device=dev)
+            return torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), x])
 
-    return OdometryResult(
-        poses=poses,
-        switched=flags(switched),
-        discarded=flags(disc),
-        weak=flags(weak),
-        fracture=flags(frac),
-        rematched=flags(rematched),
-    )
+        return OdometryResult(
+            poses=poses,
+            switched=flags(switched),
+            discarded=flags(disc),
+            weak=flags(weak),
+            fracture=flags(frac),
+            rematched=flags(rematched),
+        )
 
 
 def odometry_pairwise(model: LaserModel, scans: Scan, use_icp: bool = False) -> OdometryResult:
