@@ -7,17 +7,21 @@ Run from the repository root on a machine with a CUDA card:
 Phases (each prints one line; any failure raises and exits non-zero):
 
 1. device — require CUDA; print the card and its power limit;
-2. build — compile the fused PSM kernel (K1, two entries) from
-   ``laser_slam_tpu_torch/csrc`` with nvcc for sm_90a;
+2. build — compile the fused PSM kernel (K1, two entries) and the sparse
+   correlative score-volume kernel from ``laser_slam_tpu_torch/csrc``
+   with nvcc for sm_90a;
 3. kernel parity at full size — K1's batch entry against the plain
    PyTorch matcher on the card, and its error-index epilogue against the
    plain ``error_index``: 2671 consecutive LMS211 pairs of the synthetic
    intel-lab-shaped log, and 512 pairs at 361 and 541 beams; batch
-   timings;
+   timings. Then ``[correlative]``: the score-volume kernel against its
+   plain version (count raster and grouped conv) at pass 2's shapes, 181
+   and 361 beams, bit for bit, with the times of both and the bound;
 4. main paths — ``laser_slam_tpu_torch.cli odometry`` on the 2672-scan
    synthetic CARMEN log on ``cuda``: read → preprocess → keyframe
    odometry (K1's chain entry: pass 1 in one launch; then the ±π
-   correlative re-match of flagged steps) → ATE/RPE → occupancy map →
+   correlative re-match of flagged steps, one launch of the score-volume
+   kernel a chunk, by count and in the trace) → ATE/RPE → occupancy map →
    PNG; and ``cli odometry --pairwise`` (K1's batch entry, one launch of
    2671 pairs). Then the keyframe odometry again by the step-loop route
    (``chain="steps"``, the chain entry's plain version on the card), held
@@ -34,9 +38,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    re-attachment. Held: the chain entry launched, all waves ran, a
    strict loop banked and used, finite poses, SLAM ATE below the run's
    odometry ATE; the used loops are classified against the ground
-   truth. Then one wave under ``torch.profiler``: the device time of the
-   hot spots that stay library calls (nearest-two search, score-volume
-   convolution, peak suppression, sorts and dense solves);
+   truth; every score volume launches the sparse kernel once, and the
+   first of pass 2 and of each loop-closure lane equals the conv's bit for
+   bit. Then one wave under ``torch.profiler``: the device time of the
+   hot spots (nearest-two search, score volume, peak suppression, sorts
+   and dense solves);
 6. the online path, on the same log at ``SlamConfig()`` defaults:
    ``SlamV1(work_mode="mapping")`` as shipped (async backend on a worker
    thread with a CUDA stream of its own, the filter and the live map on)
@@ -45,7 +51,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    per-scan latency with and without a round in flight, the scheduler's
    counters, the rounds' walls, ATE before and after. K1's two-pair
    entry launches once a scan; every 16th scan's inputs are held against
-   the plain versions. The same session with the synchronous backend on
+   the plain versions. Every score volume launches the sparse kernel once;
+   the rounds' first volumes equal the conv's bit for bit, the frontend's
+   deep step (B = 1, where the conv was cuDNN's) within 1e-5 of its sum. The same session with the synchronous backend on
    the first 1000 scans (the frontends must agree until a round applies);
    a checkpoint at scan 1000 resumed and fed 200 more against the
    uninterrupted session; a profiler trace of 200 scans; each layer of a
@@ -103,6 +111,7 @@ record, the card's name and power limit, and the device JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -250,11 +259,11 @@ OPS_PROJECT, OPS_SHIFT, OPS_TRANSLATE, OPS_INDEX = 40, 4, 22, 8
 MATCH_IO_BYTES, INDEX_OUT_BYTES, CHAIN_STEP_OUT_BYTES = 12 + 12 + 4 + 1 + 4, 12, 12 + 3 + 8
 
 
-# ``torch.profiler.record_function`` ranges in the port that mark the hot
-# spots which stay library calls: their device seconds are read from a trace.
+# ``torch.profiler.record_function`` ranges in the port that mark its hot
+# spots: their device seconds are read from a trace.
 HOT_SPOTS = {
     "h1_nearest_two": "H1 distance matrix + two argmins (ops/icp_points)",
-    "h2_score_volume_conv": "H2 grouped conv2d (ops/correlative)",
+    "h2_score_volume_conv": "H2 score volume: the sparse kernel corr_volume_kernel (ops/correlative)",
     "h3_peak_nms": "H3 max_pool3d + stable sort (ops/correlative)",
     "h4_sort": "H4 voxel-key sorts (graph/submap.reduce_group)",
     "h4_solve": "H4 dense LU solves (graph/solve)",
@@ -262,7 +271,7 @@ HOT_SPOTS = {
 # ATen operators whose device seconds the wave trace also lists.
 ATEN_OPS = ("aten::sort", "aten::argmin", "aten::cudnn_convolution", "aten::max_pool3d_with_indices",
             "aten::_conv_depthwise2d", "aten::linalg_solve_ex", "aten::index_put_",
-            "aten::scatter_", "aten::gather")
+            "aten::scatter_", "aten::gather", "laser_slam_tpu_torch::corr_volume")
 
 
 def phase(name: str, msg: str) -> None:
@@ -374,7 +383,7 @@ def trace(fn, host_ops=None):
     """Runs ``fn()`` under ``torch.profiler`` and returns ``(wall seconds,
     number of device operations, device-busy seconds as the union of their
     intervals, {kernel: (count, seconds)})``, K1's two entries by name and
-    everything else as ``other``. With a dict ``host_ops``, it is filled
+    the sparse score-volume kernel by name, everything else as ``other``. With a dict ``host_ops``, it is filled
     with ``{name: (calls, device seconds)}`` of the host-side ranges and
     operators named in ``HOT_SPOTS`` and ``ATEN_OPS``: the device time of
     the kernels each launched."""
@@ -401,7 +410,8 @@ def trace(fn, host_ops=None):
                 host_ops[e.name] = (calls + 1, seconds + e.device_time_total / 1e6)
     by_name, busy, edge = {}, 0.0, None
     for e in sorted(ops, key=lambda e: e.time_range.start):
-        key = next((k for k in ("psm_chain_kernel", "psm_match_kernel") if k in e.name), "other")
+        key = next((k for k in ("psm_chain_kernel", "psm_match_kernel", "corr_volume_kernel")
+                    if k in e.name), "other")
         count, seconds = by_name.get(key, (0, 0.0))
         by_name[key] = (count + 1, seconds + (e.time_range.end - e.time_range.start) / 1e6)
         start = e.time_range.start if edge is None else max(e.time_range.start, edge)
@@ -427,11 +437,155 @@ def host_s(fn):
     return out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def volume_calls(keep=None):
+    """Counts the calls of ``correlative.correlative_score_volume`` while
+    open (from any thread) and zeroes the sparse kernel's launch count on
+    entry: on the card every call must launch ``corr_volume_kernel`` once,
+    which :func:`check_volume_launches` holds afterwards. With a dict
+    ``keep``, the first call's arguments of each ``(overlap_norm, B == 1,
+    G)`` are kept in it."""
+    import inspect
+
+    from laser_slam_tpu_torch.ops import correlative
+    from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
+
+    plain, calls = correlative.correlative_score_volume, [0]
+    sig = inspect.signature(plain)
+
+    def counting(*args, **kw):
+        calls[0] += 1
+        if keep is not None:
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            grid = a.arguments["grid"]
+            keep.setdefault((a.arguments["overlap_norm"], grid.shape[0] == 1, grid.shape[-1]),
+                            dict(a.arguments))
+        return plain(*args, **kw)
+
+    correlative.correlative_score_volume = counting
+    V.score_volume_sparse.launches = 0
+    try:
+        yield calls
+    finally:
+        correlative.correlative_score_volume = plain
+
+
+def check_volume_launches(calls, label) -> int:
+    """Holds the sparse kernel's launches since :func:`volume_calls` opened
+    to the score-volume calls it counted; returns them."""
+    from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
+
+    launches = V.score_volume_sparse.launches
+    if launches != calls[0] or launches < 1:
+        raise AssertionError(f"{label}: {calls[0]} score-volume calls launched the sparse kernel "
+                             f"{launches} times")
+    return launches
+
+
+def volume_parity(a, label, exact=True):
+    """The sparse kernel against its plain version (the count raster and
+    the grouped conv) on the arguments ``a`` of one
+    ``correlative_score_volume`` call on the card, both planes with
+    ``overlap_norm``. ``exact``: the volumes equal bit for bit (PyTorch's
+    depthwise conv, B > 1); otherwise (B = 1, where the conv is cuDNN's)
+    within 1e-5 of the volume's largest sum. Returns the largest
+    difference."""
+    from laser_slam_tpu_torch.ops import correlative
+    from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
+
+    grid, n_steps = a["grid"], a["n_steps"]
+    g = grid.shape[-1]
+    ix, iy, inb = correlative._rotated_cells(a["pts"], a["ok"], a["thetas"], a["base_xy"],
+                                             a["res"], a["half_extent"], g)
+    planes = (torch.stack([grid, correlative._cover(grid, a["res"], a["overlap_radius"])])
+              if a["overlap_norm"] else grid[None])
+    got = V.score_volume_sparse(planes, torch.where(inb, iy * g + ix, -1).to(torch.int32),
+                                n_steps)
+    want = correlative._score_volume_conv(planes, ix, iy, inb, n_steps)
+    equal = torch.equal(got, want)
+    diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    same_arg = torch.equal(got.flatten(2).argmax(-1), want.flatten(2).argmax(-1))
+    phase("correlative", f"{label}, B={grid.shape[0]} K={a['thetas'].shape[-1]} "
+                         f"T={2 * n_steps + 1} G={g} N={a['pts'].shape[1]} planes "
+                         f"{planes.shape[0]}: kernel vs plain conv equal {equal}, max |d| "
+                         f"{diff:.3g} of {top:.4g}, flat argmax equal {same_arg}")
+    if not (equal if exact else diff <= 1e-5 * top):
+        raise AssertionError(f"the sparse volume kernel differs from the conv on {label} by {diff}")
+    return diff
+
+
+def correlative_phase(log, scans, synth, smi):
+    """``[correlative]``: the sparse score-volume kernel against its plain
+    version at pass 2's shapes (128 consecutive pairs, 72 rotations across
+    ±π, ``match_correlative``'s ±1.2 m window on the 256 × 256 grid) at 181
+    and 361 beams, bit for bit; the kernel's time, the plain version's and
+    the conv's alone, and the least time by operations and bytes. Returns
+    them by beam count."""
+    from laser_slam_tpu_torch.core import scan as S
+    from laser_slam_tpu_torch.ops import correlative, icp_points
+    from laser_slam_tpu_torch.ops import preprocess as pp
+    from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
+
+    dev = torch.device("cuda")
+    rows, k_rot = 128, 72
+    n_steps = int(1.2 / correlative.GRID_RES)
+    t = 2 * n_steps + 1
+    thetas = correlative._linspace(-np.pi, np.pi, k_rot, torch.float32, dev).expand(rows, k_rot)
+    base = torch.zeros(rows, 2, device=dev)
+    rng = np.random.default_rng(13)
+    out = {}
+    for model in (log.model, S.LMS511):
+        if model.n_beams == log.model.n_beams:
+            a, b = pairs(S.Scan(*(x[:rows + 1] for x in scans)), S)
+        else:
+            r = synth.ray_cast(synth.floor_plan(), synth.trajectory(rows + 1)[0],
+                               model.bearings(torch.float64).numpy())
+            r = np.where(r <= synth.MAX_RANGE, r + rng.normal(0.0, synth.NOISE, r.shape), r)
+            a, b = pairs(pp.preprocess(torch.as_tensor(r.astype(np.float32), device=dev), model),
+                         S)
+        grid = correlative.build_likelihood_grid(model, a)
+        pts, ok = icp_points.scan_to_points(model, b)
+        args = dict(grid=grid, pts=pts, ok=ok, thetas=thetas.contiguous(), n_steps=n_steps,
+                    res=correlative.GRID_RES, half_extent=correlative.GRID_HALF_EXTENT,
+                    base_xy=base, overlap_norm=False, overlap_radius=1.5)
+        volume_parity(args, f"pass 2, {model.name} ({model.n_beams} beams)")
+        g = grid.shape[-1]
+        ix, iy, inb = correlative._rotated_cells(pts, ok, args["thetas"], base,
+                                                 correlative.GRID_RES,
+                                                 correlative.GRID_HALF_EXTENT, g)
+        cells = torch.where(inb, iy * g + ix, -1).to(torch.int32)
+        planes = grid[None]
+        plane = torch.arange(rows * k_rot, device=dev).view(rows, k_rot, 1) * (g * g)
+        raster = torch.zeros(rows * k_rot * g * g, device=dev).index_add_(
+            0, torch.where(inb, plane + iy * g + ix, 0).reshape(-1),
+            inb.float().reshape(-1)).view(rows * k_rot, 1, g, g)
+        pad = torch.nn.functional.pad(planes, (n_steps,) * 4)
+        ms = cuda_ms(lambda: V.score_volume_sparse(planes, cells, n_steps), 50)
+        plain_ms = cuda_ms(lambda: correlative._score_volume_conv(planes, ix, iy, inb, n_steps), 3)
+        conv_ms = cuda_ms(lambda: correlative._conv2d(pad, raster, rows), 3)
+        # A multiply-add (2 operations) a point on the raster, rotation and
+        # shift; each grid, id and volume element once.
+        madds = int(inb.sum()) * t * t
+        t_ops = 2 * madds / PEAK_FP32_FLOPS * 1e3
+        t_bytes = n_bytes(planes, cells) + rows * k_rot * t * t * 4
+        t_bytes = t_bytes / PEAK_BYTES_S * 1e3
+        bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        phase("correlative", f"pass 2, {model.name}: kernel {ms:.4f} ms, plain version (raster, "
+                             f"pad, conv) {plain_ms:.3f} ms, conv alone {conv_ms:.3f} ms, bound "
+                             f"{bound:.4f} ms by {by} ({madds:.3g} multiply-adds); {smi}")
+        out[model.n_beams] = {"ms": ms, "plain_ms": plain_ms, "library_ms": conv_ms,
+                              "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def slam_phase(cli, K, log_path, log, smi):
     """Drives ``cli slam`` on ``cuda`` at ``SlamConfig()`` defaults, holds
     the result (see the module docstring), prints the ``[slam]``
     lines and the trace of one wave. Returns K1's chain-entry launches
-    and the run's diagnostics (the loop bank, the anchor poses)."""
+    the run's diagnostics (the loop bank, the anchor poses) and the sparse
+    score-volume kernel's launches."""
     from laser_slam_tpu_torch.eval.diagnostics import classify_loops
     from laser_slam_tpu_torch.graph import solve
     from laser_slam_tpu_torch.graph.submap import build_submaps
@@ -450,11 +604,14 @@ def slam_phase(cli, K, log_path, log, smi):
     K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
     torch.cuda.reset_peak_memory_stats()
     solve._solve_normal = counting
+    volumes = {}
     try:
-        run = cli.main(["slam", log_path, "--device", "cuda"])
+        with volume_calls(volumes) as calls:
+            run = cli.main(["slam", log_path, "--device", "cuda"])
     finally:
         solve._solve_normal = solve_normal
     torch.cuda.synchronize()
+    volume_launches = check_volume_launches(calls, "cli slam")
     launches = (K.odometry_chain_fused.launches, K.match_psm_fused.launches)
     res, tm, bank = run.result, run.diag["timing"], run.diag["bank"]
     t = log.n_scans
@@ -494,6 +651,13 @@ def slam_phase(cli, K, log_path, log, smi):
                   f"LM iterations (one host sync each) {lm_iterations[0]} in {2 * waves} solves")
     if not ate_slam < ate_odo:
         raise AssertionError(f"SLAM ATE {ate_slam} is not below the odometry ATE {ate_odo}")
+    phase("correlative", f"cli slam: {calls[0]} score volumes, sparse kernel launches "
+                         f"{volume_launches}")
+    if {k[0] for k in volumes if not k[1]} != {False, True}:
+        raise AssertionError(f"cli slam made no batched score volume of one of loop closure's "
+                             f"two lanes: {sorted(volumes)}")
+    for (lane, _, g), a in sorted(volumes.items()):
+        volume_parity(a, f"cli slam, first volume with overlap_norm={lane} on a {g}^2 grid")
 
     # One wave (the first: from the odometry estimate, an empty bank) under
     # the profiler, with the signature gate and the wide clouds before it.
@@ -516,7 +680,7 @@ def slam_phase(cli, K, log_path, log, smi):
         "card": smi}))
     if n_ops == 0 or host_ops.get("h1_nearest_two", (0, 0.0))[0] == 0:
         raise AssertionError("the traced wave ran no device operation of the verifier")
-    return launches[0], run.diag
+    return launches[0], run.diag, volume_launches
 
 
 
@@ -616,7 +780,9 @@ def drive_facade(log, n_scans, async_backend, K, odometry, record=None, period=0
 
 def online_phase(K, log, smi, stats, psm, odometry, tmp_dir):
     """The online path (see the module docstring, phase 6). Returns K1's
-    batch-entry launches of the shipped (async) session."""
+    batch-entry launches of the shipped (async) session, the sparse
+    score-volume kernel's, and the largest difference of its B = 1 volume
+    from the conv's (None without a deep frontend step)."""
     from laser_slam_tpu_torch.eval import metrics
     from laser_slam_tpu_torch.eval.diagnostics import classify_loops
     from laser_slam_tpu_torch.runtime.online import OnlineSlam
@@ -632,14 +798,17 @@ def online_phase(K, log, smi, stats, psm, odometry, tmp_dir):
     # -- the session as shipped: async backend, the filter, the live map --
     torch.cuda.reset_peak_memory_stats()
     inputs = []
-    t0 = time.perf_counter()
-    s, sec, busy, walls, front_async, counts, launches = drive_facade(
-        log, t, True, K, odometry, record=inputs, period=REPLAY_PERIOD)
-    feed_s = time.perf_counter() - t0
+    volumes = {}
+    with volume_calls(volumes) as calls:
+        t0 = time.perf_counter()
+        s, sec, busy, walls, front_async, counts, launches = drive_facade(
+            log, t, True, K, odometry, record=inputs, period=REPLAY_PERIOD)
+        feed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s.stop()
+        stop_s = time.perf_counter() - t0
+    volume_launches = check_volume_launches(calls, "the async session")
     slam = s._slam
-    t0 = time.perf_counter()
-    s.stop()
-    stop_s = time.perf_counter() - t0
     ate_drained = ate_of(slam.trajectory)
     stats_before_final = dict(slam.async_stats)
     t0 = time.perf_counter()
@@ -682,6 +851,15 @@ def online_phase(K, log, smi, stats, psm, odometry, tmp_dir):
                              f"{slam.trajectory.shape}")
     if not ate_flushed < ate_odo:
         raise AssertionError(f"flushed ATE {ate_flushed} is not below the odometry ATE {ate_odo}")
+    phase("correlative", f"async session: {calls[0]} score volumes ({counts['deep_fallback']} "
+                         f"deep frontend steps, B = 1), sparse kernel launches {volume_launches}")
+    b1 = []
+    for (lane, one, g), a in sorted(volumes.items()):
+        label = f"async session, first volume with overlap_norm={lane} on a {g}^2 grid"
+        if one:
+            b1.append(volume_parity(a, f"{label}, B = 1 (the frontend's deep step)", exact=False))
+        else:
+            volume_parity(a, label)
     grid = s.global_map(slam.map_resolution)
     if grid.log_odds.device.type != "cuda" or int((grid.log_odds > 0).sum()) < 1000:
         raise AssertionError("the live map is empty or not on cuda")
@@ -797,7 +975,7 @@ def online_phase(K, log, smi, stats, psm, odometry, tmp_dir):
     layers["map_twice_cells_differing"] = int((grids[0] != grids[1]).sum())
     layers["card"] = smi
     phase("layers", "online scan " + json.dumps(layers))
-    return launches
+    return launches, volume_launches, max(b1, default=None)
 
 
 def localize_phase(cli, log_path, log, smi):
@@ -1873,6 +2051,7 @@ def main() -> None:
     from laser_slam_tpu_torch.io.carmen import read_carmen
     from laser_slam_tpu_torch.mapping import occupancy as occ
     from laser_slam_tpu_torch.ops import correlative, odometry, preprocess as pp, psm
+    from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
     from laser_slam_tpu_torch.ops.cuda import psm_kernel as K
     import synthetic_log as synth
 
@@ -1889,6 +2068,9 @@ def main() -> None:
     t_build = K.build()
     ptxas = " | ".join(l.strip() for l in K.build_log.splitlines() if "Used" in l or "spill" in l)
     phase("build", f"K1 {K.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
+    t_build = V.build()
+    ptxas = " | ".join(l.strip() for l in V.build_log.splitlines() if "Used" in l or "spill" in l)
+    phase("build", f"{V.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
 
     # -- 3. kernel parity and timing at full size ---------------------------
     tmp = tempfile.TemporaryDirectory()
@@ -1932,15 +2114,18 @@ def main() -> None:
                     f"error-index epilogue {batch_index_ms:.4f} ms, plain {batch_plain_ms:.3f} ms "
                     f"({n_pairs / batch_plain_ms * 1e3:.1f} matches/s), bound "
                     f"{batch_bound:.5f} ms by {batch_bound_by}; {smi}")
+    corr = correlative_phase(log, scans, synth, smi)
 
     # -- 4. main paths ----------------------------------------------------
     with tmp:
         traj, png = os.path.join(tmp.name, "traj.txt"), os.path.join(tmp.name, "map.png")
         K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
         t0 = time.perf_counter()
-        run = cli.main(["odometry", log_path, "--device", "cuda", "--out", traj, "--map", png])
-        torch.cuda.synchronize()
+        with volume_calls() as calls:
+            run = cli.main(["odometry", log_path, "--device", "cuda", "--out", traj, "--map", png])
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        odo_volume_launches = check_volume_launches(calls, "cli odometry")
         chain_launches = K.odometry_chain_fused.launches
         step_launches = K.match_psm_fused.launches
         chain_iters = K.odometry_chain_fused.last_iters.cpu().numpy()
@@ -1966,11 +2151,16 @@ def main() -> None:
         n_rematch = int(res.rematched.sum())
         if n_rematch <= 0:
             raise AssertionError("pass 2 (correlative re-match) never ran")
+        chunks = -(-n_rematch // 128)                 # odometry_keyframe's deep_chunk
+        if odo_volume_launches != chunks:
+            raise AssertionError(f"pass 2 launched the sparse volume kernel {odo_volume_launches} "
+                                 f"times for {chunks} chunks of {n_rematch} re-matches")
         ate = float(run.ate.rmse)
         bound = ATE_FACTOR * JAX_SYNTHETIC_ATE + ATE_SLACK
         phase("main", f"{t} scans: odometry {run.seconds:.3f}s ({t / run.seconds:.1f} scans/s), "
                       f"cli total {wall:.2f}s; K1 chain launches {chain_launches}, batch-entry "
-                      f"launches {step_launches}; pass-2 re-matches {n_rematch}; switched "
+                      f"launches {step_launches}; pass-2 re-matches {n_rematch}, sparse volume "
+                      f"kernel launches {odo_volume_launches}; switched "
                       f"{int(res.switched.sum())} weak {int(res.weak.sum())} "
                       f"discarded {int(res.discarded.sum())} fracture {int(res.fracture.sum())}; "
                       f"ATE {ate:.4f} m (JAX {JAX_SYNTHETIC_ATE:.4f}, bound {bound:.4f}); "
@@ -2089,6 +2279,9 @@ def main() -> None:
             "card": smi}))
         if by_name.get("psm_chain_kernel", (0, 0.0))[0] != 1 or "psm_match_kernel" in by_name:
             raise AssertionError(f"pass 1 is not one chain kernel in the trace: {by_name}")
+        if by_name.get("corr_volume_kernel", (0, 0.0))[0] != chunks:
+            raise AssertionError(f"pass 2 is not {chunks} sparse volume kernels in the trace: "
+                                 f"{by_name}")
 
         # -- where the main path's time goes: each layer again, alone ------
         _, t_read = host_s(lambda: read_carmen(log_path))
@@ -2110,22 +2303,28 @@ def main() -> None:
             "ate_rpe_s": t_metrics, "map_s": t_map, "card": smi}))
 
         # -- 5. the SLAM main path -------------------------------------------
-        slam_chain_launches, slam_diag = slam_phase(cli, K, log_path, log, smi)
+        slam_chain_launches, slam_diag, slam_volume_launches = slam_phase(
+            cli, K, log_path, log, smi)
 
         # -- 6. the online path ------------------------------------------------
-        online_launches = online_phase(K, log, smi, stats, psm, odometry, tmp.name)
+        online_launches, online_volume_launches, online_b1_diff = online_phase(
+            K, log, smi, stats, psm, odometry, tmp.name)
 
         # -- 7. localization -----------------------------------------------------
         localize_phase(cli, log_path, log, smi)
 
         # -- 8.-11. the distributed topology, the other matchers and verifiers --
+        V.score_volume_sparse.launches = 0
         tcp_launches = tcp_phase(cli, K, log_path, log, smi, tmp.name)
+        tcp_volume_launches = V.score_volume_sparse.launches
         matchers_phase(log, scans, smi)
         slam_icp_phase(log, smi)
         features_phase(log, smi)
 
         # -- 12. the robot application path --------------------------------------
+        V.score_volume_sparse.launches = 0
         robot_launches = robot_phase(K, log, smi, tmp.name)
+        robot_volume_launches = V.score_volume_sparse.launches
 
         # -- 13. the Kalman and landmark filters ------------------------------------
         fusion_phase(smi)
@@ -2186,6 +2385,19 @@ def main() -> None:
             "step_pairs": 2, "step_ms": step_ms, "step_device_ms": step_device_ms,
             "step_plain_ms": step_plain_ms, "step_bound_ms": step_bound,
             "index_max_rel_err": max(s["index_rel_err"] for s in stats),
+        },
+        {
+            "name": "corr_volume_kernel (sparse correlative score volume: pass 2 at 128 rows x 72 "
+                    "rotations x 529 shifts on a 256^2 grid, 181 beams; 361 beams under _361)",
+            "route": "cuda", "source": "laser_slam_tpu_torch/csrc/correlative_kernel.cu",
+            "replaces": None,
+            "launches": (odo_volume_launches + slam_volume_launches + online_volume_launches
+                         + tcp_volume_launches + robot_volume_launches),
+            "launches_cli_odometry": odo_volume_launches,
+            "launches_cli_slam": slam_volume_launches, "launches_online": online_volume_launches,
+            "launches_tcp_client": tcp_volume_launches, "launches_robot": robot_volume_launches,
+            "max_abs_err": 0.0, "max_abs_err_b1_online": online_b1_diff,
+            **corr[181], **{f"{k}_361": v for k, v in corr[361].items()},
         },
     ]}
     print(json.dumps(record))

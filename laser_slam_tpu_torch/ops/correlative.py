@@ -5,7 +5,9 @@ The reference scan is rasterized into a blurred likelihood grid; every
 pose of a (θ, tx, ty) volume is scored by the mean grid value under the
 transformed current scan. For all translations at once this is the
 cross-correlation of the grid with the rotated cloud's raster: one
-grouped ``conv2d`` over the pairs of a batch. The gather path
+grouped ``conv2d`` over the pairs of a batch, or on a CUDA device the
+same sums over the cloud's occupied cells alone (a hand-written kernel,
+``csrc/correlative_kernel.cu``). The gather path
 (:func:`_score_theta`, ``match_correlative(conv=False)``) looks every
 shifted point up instead, one rotation at a time. A trimmed point-ICP
 polish recovers sub-cell accuracy.
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 
 from ..core import se2
 from ..core.scan import LaserModel, Scan
-from ..utils.profiling import trace
+from ..utils.profiling import profiler, trace
+from .cuda.correlative_kernel import score_volume_sparse
 from .icp_points import match_icp_points, scan_to_points
 
 Tensor = torch.Tensor
@@ -113,6 +116,52 @@ def build_likelihood_grid(
     return build_likelihood_grid_points(pts, ok, res, half_extent, blur_sigma)
 
 
+def _rotated_cells(pts: Tensor, ok: Tensor, thetas: Tensor, base_xy: Tensor, res: float,
+                   half_extent: float, g: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Raster cells ``(ix, iy) [B, K, N]`` of clouds ``[B, N, 2]`` rotated
+    by each θ of ``thetas [B, K]`` and offset by ``base_xy [B, 2]``, and
+    whether each valid point's cell lies on the ``G × G`` raster: a point
+    whose cell is off it is dropped for every shift."""
+    c, s = torch.cos(thetas)[..., None], torch.sin(thetas)[..., None]   # [B, K, 1]
+    px, py = pts[:, None, :, 0], pts[:, None, :, 1]                    # [B, 1, N]
+    rx = px * c - py * s + base_xy[:, 0, None, None]
+    ry = px * s + py * c + base_xy[:, 1, None, None]
+    ix = _cell(rx, half_extent, res)                                   # [B, K, N]
+    iy = _cell(ry, half_extent, res)
+    inb = ok[:, None, :] & (ix >= 0) & (ix < g) & (iy >= 0) & (iy < g)
+    return ix, iy, inb
+
+
+def _cover(grid: Tensor, res: float, overlap_radius: float) -> Tensor:
+    """Ref-covered territory ``[B, G, G]``: the occupied grid (above 0.05)
+    dilated by ``overlap_radius``."""
+    w = 2 * max(int(round(overlap_radius / res)), 1) + 1
+    return F.max_pool2d(
+        (grid > 0.05).to(grid.dtype)[:, None], w, stride=1, padding=w // 2
+    )[:, 0]
+
+
+def _score_volume_conv(planes: Tensor, ix: Tensor, iy: Tensor, inb: Tensor,
+                       n_steps: int) -> Tensor:
+    """Score sums ``[C, B, K, T, T]`` of grids ``planes [C, B, G, G]``
+    under the cells ``(ix, iy, inb)`` of :func:`_rotated_cells`: each
+    rotated cloud is rasterized into a ``[G, G]`` count kernel, and the
+    sums are the ``VALID`` cross-correlation of the zero-padded planes with
+    those kernels, one convolution group per row. The plain version of
+    ``cuda.correlative_kernel.score_volume_sparse``."""
+    c, b, g = planes.shape[0], planes.shape[1], planes.shape[-1]
+    k = ix.shape[1]
+    t = 2 * n_steps + 1
+    plane = torch.arange(b * k, device=planes.device).view(b, k, 1) * (g * g)
+    flat = torch.where(inb, plane + iy * g + ix, 0)
+    raster = torch.zeros(b * k * g * g, dtype=planes.dtype, device=planes.device).index_add_(
+        0, flat.reshape(-1), inb.to(planes.dtype).reshape(-1)
+    ).view(b * k, 1, g, g)
+    pad = F.pad(planes, (n_steps,) * 4)                                # [C, B, ., .]
+    with trace("h2_score_volume_conv"):
+        return _conv2d(pad, raster, b).view(c, b, k, t, t)
+
+
 def correlative_score_volume(
     grid: Tensor,
     pts: Tensor,
@@ -130,11 +179,15 @@ def correlative_score_volume(
     likelihood for grids ``[B, G, G]``, clouds ``[B, N, 2]`` / ``[B, N]``,
     rotations ``[B, K]`` and base offsets ``[B, 2]``.
 
-    Each cloud, rotated by each θ and offset by ``base_xy``, is rasterized
-    into a ``[G, G]`` count kernel; a point whose rotated base cell falls
-    outside the raster is dropped for every shift. The volume is the
-    ``VALID`` cross-correlation of the zero-padded grid with those
-    kernels, one convolution group per pair.
+    Each cloud, rotated by each θ and offset by ``base_xy``, falls into
+    raster cells; a point whose rotated base cell falls outside the
+    raster is dropped for every shift. The volume sums the grid under the
+    cells at every shift: on a CUDA device the sparse kernel
+    (``cuda.correlative_kernel``, counted in the profiler's
+    ``correlative.volume_launches`` and ``correlative.volume_rows``), on
+    the CPU its plain version :func:`_score_volume_conv`, the ``VALID``
+    cross-correlation of the zero-padded grid with the clouds' count
+    rasters.
 
     ``overlap_norm`` divides by the number of query points landing in
     ref-covered territory (occupied raster dilated by ``overlap_radius``)
@@ -142,41 +195,22 @@ def correlative_score_volume(
     valid count.
     """
     b, g = grid.shape[0], grid.shape[-1]
-    dtype, dev = grid.dtype, grid.device
-    k = thetas.shape[-1]
-    t = 2 * n_steps + 1
-
-    c, s = torch.cos(thetas)[..., None], torch.sin(thetas)[..., None]   # [B, K, 1]
-    px, py = pts[:, None, :, 0], pts[:, None, :, 1]                    # [B, 1, N]
-    rx = px * c - py * s + base_xy[:, 0, None, None]
-    ry = px * s + py * c + base_xy[:, 1, None, None]
-    ix = _cell(rx, half_extent, res)                                   # [B, K, N]
-    iy = _cell(ry, half_extent, res)
-    inb = ok[:, None, :] & (ix >= 0) & (ix < g) & (iy >= 0) & (iy < g)
-    plane = torch.arange(b * k, device=dev).view(b, k, 1) * (g * g)
-    flat = torch.where(inb, plane + iy * g + ix, 0)
-    raster = torch.zeros(b * k * g * g, dtype=dtype, device=dev).index_add_(
-        0, flat.reshape(-1), inb.to(dtype).reshape(-1)
-    ).view(b * k, 1, g, g)
-
-    n_valid = torch.clamp(torch.sum(ok, dim=-1), min=1).to(dtype)      # [B]
-    if not overlap_norm:
-        pad = F.pad(grid, (n_steps,) * 4)[None]                        # [1, B, ., .]
+    ix, iy, inb = _rotated_cells(pts, ok, thetas, base_xy, res, half_extent, g)
+    planes = torch.stack([grid, _cover(grid, res, overlap_radius)]) if overlap_norm else grid[None]
+    if grid.is_cuda:
+        cells = torch.where(inb, iy * g + ix, -1).to(torch.int32)
         with trace("h2_score_volume_conv"):
-            vol = _conv2d(pad, raster, b).view(b, k, t, t)
-        return vol / n_valid[:, None, None, None]
+            out = score_volume_sparse(planes, cells, n_steps)
+        profiler.count("correlative.volume_launches", 1)
+        profiler.count("correlative.volume_rows", b * thetas.shape[-1])
+    else:
+        out = _score_volume_conv(planes, ix, iy, inb, n_steps)
 
-    w = 2 * max(int(round(overlap_radius / res)), 1) + 1
-    cover = F.max_pool2d(
-        (grid > 0.05).to(dtype)[:, None], w, stride=1, padding=w // 2
-    )[:, 0]
-    both = torch.stack([grid, cover])                                  # [2, B, G, G]
-    pad = F.pad(both, (n_steps,) * 4)
-    with trace("h2_score_volume_conv"):
-        out = _conv2d(pad, raster, b).view(2, b, k, t, t)
-    vol, n_overlap = out[0], out[1]
-    denom = torch.maximum(n_overlap, overlap_floor * n_valid[:, None, None, None])
-    return vol / denom
+    n_valid = torch.clamp(torch.sum(ok, dim=-1), min=1).to(grid.dtype)  # [B]
+    if not overlap_norm:
+        return out[0] / n_valid[:, None, None, None]
+    denom = torch.maximum(out[1], overlap_floor * n_valid[:, None, None, None])
+    return out[0] / denom
 
 
 def _score_theta(

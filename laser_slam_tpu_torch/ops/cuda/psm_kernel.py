@@ -20,12 +20,7 @@ plain version; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import time
-from pathlib import Path
 
 import torch
 
@@ -33,71 +28,43 @@ from ...core import se2
 from ...core.scan import LaserModel, Scan
 from .. import psm
 from ..project import _pair_valid_from_seg
+from . import nvcc
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "psm_kernel.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+SOURCE = nvcc.PKG / "csrc" / "psm_kernel.cu"
 MAX_BEAMS = 544
 
 _lib = None
 build_log = ""   # nvcc's output (ptxas register / shared-memory report)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and Path(home, "bin", "nvcc").exists():
-            return str(Path(home, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the PSM kernel needs the CUDA toolkit")
-
-
-def build() -> float:
-    """Compile (if needed) and load the kernel library; returns the
-    seconds spent, 0 when it was already loaded."""
+def build(flags: tuple = nvcc.NVCC_FLAGS) -> float:
+    """Compile (if needed, with ``nvcc`` ``flags``) and load the kernel
+    library; returns the seconds spent, 0 when it was already loaded."""
     global _lib, build_log
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"psm_kernel_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    model_args = [ci, ci, cf, cf, cf, cf, ci, ci, ci]   # n ... change_weight_it
-    lib.psm_match_launch.argtypes = [
-        *[vp] * 15,            # tensors
-        ci, *model_args,       # batch, model
-        ci, vp,                # device, stream
-    ]
-    lib.psm_match_launch.restype = ci
-    lib.psm_chain_launch.argtypes = [
-        *[vp] * 9,             # tensors
-        ci, *model_args,       # n_scans, model
-        cf, cf,                # thresholds
-        ci, vp,                # device, stream
-    ]
-    lib.psm_chain_launch.restype = ci
-    lib.psm_error_string.argtypes = [ci]
-    lib.psm_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return time.perf_counter() - t0
+    with nvcc.LOCK:
+        if _lib is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        lib, build_log = nvcc.load(SOURCE, flags)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        model_args = [ci, ci, cf, cf, cf, cf, ci, ci, ci]   # n ... change_weight_it
+        lib.psm_match_launch.argtypes = [
+            *[vp] * 15,            # tensors
+            ci, *model_args,       # batch, model
+            ci, vp,                # device, stream
+        ]
+        lib.psm_match_launch.restype = ci
+        lib.psm_chain_launch.argtypes = [
+            *[vp] * 9,             # tensors
+            ci, *model_args,       # n_scans, model
+            cf, cf,                # thresholds
+            ci, vp,                # device, stream
+        ]
+        lib.psm_chain_launch.restype = ci
+        lib.psm_error_string.argtypes = [ci]
+        lib.psm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return time.perf_counter() - t0
 
 
 def _check(fn: str, name: str, t: torch.Tensor, dtype, shape, dev) -> None:

@@ -1,9 +1,10 @@
 """The fused PSM CUDA kernel (K1) against its plain PyTorch versions on the
 card: the batch entry against ``psm.match_psm``, its error-index epilogue
 against ``psm.error_index``, the keyframe-chain entry against the step loop
-of ``odometry.odometry_keyframe``. Then the loop-closure backend on the
-card: the chunk verifier against the same call on the CPU, and ``cli slam``
-twice on a short log. Then the later paths on the card: the online
+of ``odometry.odometry_keyframe``. The sparse correlative score-volume
+kernel against the grouped conv of its plain version. Then the
+loop-closure backend on the card: the chunk verifier against the same call
+on the CPU, and ``cli slam`` twice on a short log. Then the later paths on the card: the online
 session, localization, the ICP matchers, the loopback, the robot path,
 the landmark filters against the CPU with the same draws, and
 ``parallel/`` on a one-rank NCCL group. These tests need a CUDA device and skip
@@ -24,10 +25,11 @@ from laser_slam_tpu_torch import cli
 from laser_slam_tpu_torch.core import scan as S
 from laser_slam_tpu_torch.core import se2
 from laser_slam_tpu_torch.graph import loop_closure, submap
-from laser_slam_tpu_torch.ops import odometry
+from laser_slam_tpu_torch.ops import correlative, icp_points, odometry
 from laser_slam_tpu_torch.ops import preprocess as pp
 from laser_slam_tpu_torch.ops import psm
-from laser_slam_tpu_torch.ops.cuda import psm_kernel
+from laser_slam_tpu_torch.ops.cuda import correlative_kernel, psm_kernel
+from laser_slam_tpu_torch.utils.profiling import profiler
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import synthetic_log  # noqa: E402
@@ -187,6 +189,119 @@ def test_chain_entry_edge_cases(cuda):
         psm_kernel.odometry_chain_fused(S.LMS511, scans, 0.05, 0.10)
     with pytest.raises(ValueError):    # CPU tensors: the plain version is the step loop
         psm_kernel.odometry_chain_fused(model, scans.to("cpu"), 0.05, 0.10)
+
+
+# -- the sparse correlative score-volume kernel ---------------------------------
+
+def _volume_pair(planes, pts, ok, thetas, base, res, half_extent, n_steps):
+    """The sparse kernel's sums and the plain version's (the grouped
+    depthwise conv) from the same rotated cells."""
+    g = planes.shape[-1]
+    ix, iy, inb = correlative._rotated_cells(pts, ok, thetas, base, res, half_extent, g)
+    cells = torch.where(inb, iy * g + ix, -1).to(torch.int32)
+    before = correlative_kernel.score_volume_sparse.launches
+    got = correlative_kernel.score_volume_sparse(planes, cells, n_steps)
+    want = correlative._score_volume_conv(planes, ix, iy, inb, n_steps)
+    torch.cuda.synchronize()
+    assert correlative_kernel.score_volume_sparse.launches == before + 1
+    return got, want, inb
+
+
+@pytest.mark.parametrize("name", ["LMS211", "LMS511"])
+def test_sparse_volume_is_the_conv_at_pass_2_shapes(cuda, name):
+    """Pass 2's shapes (128 rows, 72 rotations across ±π, a 256 × 256 grid,
+    ``match_correlative``'s ±1.2 m window) at 181 and 361 beams, with a row
+    of no valid point, a row whose points sit two to a cell, and rows with
+    points off the grid: the kernel's volume equals the depthwise conv's bit
+    for bit, and so does the flat argmax of each row."""
+    model = S.PRESETS[name]
+    ref, cur, rel = pairs(model, 128, 40, cuda)
+    grid = correlative.build_likelihood_grid(model, ref)
+    pts, ok = icp_points.scan_to_points(model, cur)
+    pts, ok = pts.clone(), ok.clone()
+    ok[0] = False                                  # an all-invalid row
+    pts[1, 1::2] = pts[1, 0::2][:pts[1, 1::2].shape[0]]    # two points a cell
+    pts[2, :40] += 30.0                            # off the grid at every rotation
+    pts[3, :40] *= 20.0                            # some off it, some on it
+    init = torch.as_tensor(rel, dtype=torch.float32, device=cuda)
+    init[4, :2] = 12.0                             # the window over the grid's edge
+    n_steps = int(1.2 / correlative.GRID_RES)      # match_correlative's window
+    thetas = init[:, 2:3] + correlative._linspace(-np.pi, np.pi, 72, torch.float32, cuda)
+    got, want, inb = _volume_pair(grid[None], pts, ok, thetas, init[:, :2],
+                                  correlative.GRID_RES, correlative.GRID_HALF_EXTENT, n_steps)
+    assert got.shape == (1, 128, 72, 2 * n_steps + 1, 2 * n_steps + 1)
+    assert not inb[0].any() and not inb[2, :, :40].any() and inb[1].any()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(got.flatten(2).argmax(-1), want.flatten(2).argmax(-1))
+    assert got[0, 0].abs().max() == 0 and got.max() > 20
+
+
+@pytest.mark.parametrize("n_points", [384, 768])
+def test_sparse_volume_is_the_conv_at_loop_closure_shapes(cuda, n_points):
+    """Loop closure's coarse search (0.3 m cells on ±12.8 m, ±5 m, 48
+    rotations, 8 candidates) with the overlap normaliser's two planes, the
+    grid and its cover: both planes equal the depthwise conv's bit for bit.
+    Some points share a cell, some lie off the grid."""
+    rng = np.random.default_rng(n_points)
+    ref = torch.as_tensor(rng.uniform(-11, 11, (8, 768, 2)), dtype=torch.float32, device=cuda)
+    grid = correlative.build_likelihood_grid_points(
+        ref, torch.ones(8, 768, dtype=torch.bool, device=cuda), res=0.3, half_extent=12.8)
+    pts = torch.as_tensor(rng.uniform(-14, 14, (8, n_points, 2)), dtype=torch.float32,
+                          device=cuda)
+    pts[:, n_points // 2:] = pts[:, :n_points - n_points // 2] + 0.01
+    ok = torch.as_tensor(rng.uniform(size=(8, n_points)) > 0.1, device=cuda)
+    init = torch.as_tensor(rng.normal(0, 1, (8, 3)), dtype=torch.float32, device=cuda)
+    thetas, n_steps, _ = correlative._search_grid(init, 5.0, np.pi, 48, 0.3)
+    planes = torch.stack([grid, correlative._cover(grid, 0.3, 1.5)])
+    got, want, inb = _volume_pair(planes, pts, ok, thetas, init[:, :2], 0.3, 12.8, n_steps)
+    assert got.shape == (2, 8, 48, 35, 35) and not inb.all()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert got[1].max() > 10
+
+
+def test_sparse_volume_wrapper_rejects_what_it_does_not_take(cuda):
+    planes = torch.zeros(1, 2, 16, 16, device=cuda)
+    cells = torch.zeros(2, 3, 5, dtype=torch.int32, device=cuda)
+    before = correlative_kernel.score_volume_sparse.launches
+    for p, c in (
+        (planes, torch.zeros(2, 3, correlative_kernel.MAX_POINTS + 1, dtype=torch.int32,
+                             device=cuda)),                  # above the most points
+        (planes.double(), cells),                            # float64 grids
+        (planes, cells.long()),                              # int64 ids
+        (planes.transpose(2, 3), cells),                     # not contiguous
+        (planes, cells.cpu()),                               # on two devices
+    ):
+        with pytest.raises(ValueError):
+            correlative_kernel.score_volume_sparse(p, c, 3)
+    assert correlative_kernel.score_volume_sparse.launches == before
+    out = correlative_kernel.score_volume_sparse(
+        planes, torch.zeros(2, 3, correlative_kernel.MAX_POINTS, dtype=torch.int32,
+                            device=cuda), 3)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 2, 3, 7, 7) and (out == 0).all()
+
+
+def test_odometry_keyframe_launches_the_sparse_volume_once_a_chunk(cuda):
+    """One ``odometry_keyframe`` on the card: pass 2 launches the kernel once
+    for each chunk of re-matched steps, and the profiler counts the launches
+    and the (row, rotation) pairs; no volume goes through the conv."""
+    model = S.LMS211
+    scans, ts = synthetic_scans(model, 300, cuda, blind=(40, 41, 90))
+    before = correlative_kernel.score_volume_sparse.launches
+    profiler.reset()
+    profiler.enable()
+    try:
+        res = odometry.odometry_keyframe(model, scans, deep_chunk=8, timestamps=ts)
+        torch.cuda.synchronize()
+        counts = profiler.counts()
+    finally:
+        profiler.disable()
+        profiler.reset()
+    chunks = -(-int(res.rematched.sum()) // 8)
+    assert chunks >= 2
+    assert correlative_kernel.score_volume_sparse.launches == before + chunks
+    assert counts["correlative.volume_launches"] == chunks
+    assert counts["correlative.volume_rows"] == chunks * 8 * 72
 
 
 # Pairs of the synthetic log's first 400 scans (anchors every 10 scans): six
