@@ -12,7 +12,9 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
 - ``draw``: render an occupancy-map PNG from a log and a trajectory.
 - ``localize``: build a map from the first half of a log (at its ground
   truth) and track the second half with the particle filter: position
-  error against the ground truth.
+  error against the ground truth. ``--model`` picks the observation
+  model: ``field`` (likelihood field, the default) or ``beam`` (the
+  ray-cast beam model).
 - ``eval``: ATE / RPE of a trajectory file against a log's ground truth,
   as one JSON line.
 - ``view``: replay a log along a trajectory (``--traj``, default its
@@ -213,7 +215,12 @@ def cmd_localize(args) -> LocalizeRun:
     spec = spec_for_trajectory(log.gt_pose[: log.n_scans], model.max_range, args.resolution)
     grid = integrate_scans(
         empty_grid(spec, device=dev), model, type(scans)(*(x[:split] for x in scans)), gt[:split])
-    field = likelihood_field(grid)
+    field = likelihood_field(grid) if args.model == "field" else None
+
+    def update(state, ranges, valid):
+        if field is None:
+            return pf.update_beam(state, grid, model, ranges, valid)
+        return pf.update_field(state, field, grid, model, ranges, valid)
 
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
@@ -228,7 +235,7 @@ def cmd_localize(args) -> LocalizeRun:
         rel = se2.relative(gt[t - 1], gt[t])  # odometry stand-in
         valid = ~scans.bad[t] & (scans.ranges[t] < model.max_range)
         state = pf.predict(state, rel, generator, sigma_xy=0.05, sigma_theta=0.03)
-        state = pf.update_field(state, field, grid, model, scans.ranges[t], valid)
+        state = update(state, scans.ranges[t], valid)
         state = pf.maybe_resample(state, generator)
         ests.append(pf.estimate(state))
     if not ests:
@@ -417,6 +424,8 @@ def main(argv=None):
     sp.add_argument("--particles", type=int, default=2048)
     sp.add_argument("--steps", type=int, default=200)
     sp.add_argument("--resolution", type=float, default=0.05)
+    sp.add_argument("--model", choices=("field", "beam"), default="field",
+                    help="observation model: likelihood field or ray-cast beam model")
     sp.set_defaults(fn=cmd_localize)
 
     sp = sub.add_parser("view", help="live viewer replay of a log (GIF/window)")

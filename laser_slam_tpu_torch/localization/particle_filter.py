@@ -37,7 +37,7 @@ from ..core import se2
 from ..core.scan import LaserModel
 from ..mapping.occupancy import OccupancyGrid
 from ..ops.icp_points import match_icp_points
-from ..utils.profiling import trace
+from ..utils.profiling import profiler, trace
 from .raycast import (
     SIMULATE_BYTES_PER_SAMPLE,
     beam_likelihood,
@@ -184,14 +184,23 @@ def update_beam(
     """Ray-cast beam-model update. The ray march holds ``[P, N, S]``
     samples (``S = max_range / resolution``), so the cloud goes through it
     in chunks of particles: ``chunk`` particles, or as many as fit
-    ``CHUNK_BYTES``. The result does not depend on the chunk size."""
-    n_samples = int(model.max_range / grid.spec.resolution)
-    step = _chunk(state.n, model.n_beams * n_samples * SIMULATE_BYTES_PER_SAMPLE, chunk)
-    lik = torch.cat([
-        beam_likelihood(grid, model, state.poses[i:i + step], ranges, valid, sigma=sigma)
-        for i in range(0, state.n, step)
-    ])
-    return _reweight(state, lik)
+    ``CHUNK_BYTES``. The result does not depend on the chunk size.
+
+    Spans: ``pf.update`` around the whole update, ``pf.raycast`` around
+    the chunk loop (the march and the beam likelihood). Counters, host
+    integers: ``pf.raycast_rays`` adds ``P · N``, ``pf.raycast_chunks``
+    the chunks the cloud took."""
+    with trace("pf.update"):
+        n_samples = int(model.max_range / grid.spec.resolution)
+        step = _chunk(state.n, model.n_beams * n_samples * SIMULATE_BYTES_PER_SAMPLE, chunk)
+        profiler.count("pf.raycast_rays", state.n * model.n_beams)
+        profiler.count("pf.raycast_chunks", -(-state.n // step))
+        with trace("pf.raycast"):
+            lik = torch.cat([
+                beam_likelihood(grid, model, state.poses[i:i + step], ranges, valid, sigma=sigma)
+                for i in range(0, state.n, step)
+            ])
+        return _reweight(state, lik)
 
 
 def update_icp(

@@ -79,7 +79,10 @@ class SlamV1:
     """Deployable facade: one object, push sensors in, callbacks out.
 
     ``work_mode``: ``"mapping"`` (online SLAM) or ``"localization"``
-    (particle filter against ``localization_grid``). Everything runs on
+    (particle filter against ``localization_grid``, weighted by the
+    ``observation_model``: ``"field"``, the likelihood field, or
+    ``"beam"``, the ray-cast beam model; global relocalization on the
+    first scan scores on the field either way). Everything runs on
     ``device``: ``cuda`` unless the caller names another, and then
     construction raises where there is no CUDA device. The particle
     filter draws from a ``torch.Generator`` on that device, seeded with
@@ -91,6 +94,7 @@ class SlamV1:
     work_mode: str = "mapping"
     cfg: SlamConfig = SlamConfig()
     localization_grid: OccupancyGrid | None = None
+    observation_model: str = "field"   # localization: "field" or "beam"
     n_particles: int = 1024
     local_map_radius: float = 5.0
     seed: int = 0
@@ -124,6 +128,8 @@ class SlamV1:
         elif self.work_mode == "localization":
             if self.localization_grid is None:
                 raise ValueError("localization mode needs localization_grid")
+            if self.observation_model not in ("field", "beam"):
+                raise ValueError(f"unknown observation_model {self.observation_model!r}")
             grid = self.localization_grid
             self.localization_grid = OccupancyGrid(grid.log_odds.to(self.device), grid.spec)
             self._field = likelihood_field(self.localization_grid)
@@ -259,10 +265,14 @@ class SlamV1:
             rel = torch.from_numpy(self._pending_rel).to(self.device)
             self._pf_state = pf.predict(self._pf_state, rel, self._generator)
             self._pending_rel = np.zeros(3, np.float32)
-        self._pf_state = pf.update_field(
-            self._pf_state, self._field, self.localization_grid,
-            self.model, scan.ranges, valid,
-        )
+        if self.observation_model == "beam":
+            self._pf_state = pf.update_beam(
+                self._pf_state, self.localization_grid, self.model, scan.ranges, valid)
+        else:
+            self._pf_state = pf.update_field(
+                self._pf_state, self._field, self.localization_grid,
+                self.model, scan.ranges, valid,
+            )
         self._pf_state = pf.maybe_resample(self._pf_state, self._generator)
         est = pf.estimate(self._pf_state).cpu().numpy()
         if self.callbacks.on_localization:
