@@ -58,10 +58,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
    a checkpoint at scan 1000 resumed and fed 200 more against the
    uninterrupted session; a profiler trace of 200 scans; each layer of a
    scan alone;
-7. localization: ``cli localize`` at 4096 particles; the likelihood
-   field, global relocalization from 10,000 samples, 200 particle-filter
-   ticks timed with CUDA events, one chunked ``update_beam``; the card's
-   tick against the same functions on the CPU with the same draws;
+7. localization: ``cli localize`` at 4096 particles, and 50 ticks of
+   ``cli localize --model beam`` at 2 cm, one ray-march launch a tick;
+   the likelihood field, global relocalization from 10,000 samples, 200
+   particle-filter ticks timed with CUDA events, one ``update_beam`` (one
+   ray-march launch on the card); the card's tick against the same
+   functions on the CPU with the same draws; the beam model's ray-march
+   kernel at one tick of the beam-model cell's shape against the dense
+   ladder, bit for bit, both timed beside the least time;
 8. the distributed topology (``[tcp]``): ``cli serve`` on ``cuda`` in a
    process of its own and ``cli client`` on ``cuda`` streaming the whole
    log to it over localhost TCP; the client's K1 two-pair launches, the
@@ -985,6 +989,7 @@ def localize_phase(cli, log_path, log, smi):
     from laser_slam_tpu_torch.localization import raycast
     from laser_slam_tpu_torch.mapping import occupancy as occ
     from laser_slam_tpu_torch.ops import preprocess as pp
+    from laser_slam_tpu_torch.ops.cuda import raycast_kernel as RK
 
     dev = torch.device("cuda")
     n_particles, ticks = 4096, 200
@@ -1000,6 +1005,24 @@ def localize_phase(cli, log_path, log, smi):
     phase("localize", f"cli localize, {n_particles} particles, {ticks} ticks on a "
                       f"{spec.width}x{spec.height} grid at {spec.resolution} m: pos err mean "
                       f"{mean:.4f} m p90 {p90:.4f} m; the ticks took {run.seconds:.3f}s")
+
+    # The beam model's entry point: one ray-march launch a tick.
+    beam_ticks = 50
+    RK.ray_march.launches = 0
+    run_b = cli.main(["localize", log_path, "--particles", str(n_particles), "--steps",
+                      str(beam_ticks), "--resolution", "0.02", "--model", "beam"])
+    torch.cuda.synchronize()
+    cli_launches = RK.ray_march.launches
+    mean_b = float(run_b.errors.mean())
+    phase("localize", f"cli localize --model beam, {n_particles} particles, {beam_ticks} ticks "
+                      f"at 0.02 m: pos err mean {mean_b:.4f} m; the ticks took "
+                      f"{run_b.seconds:.3f}s; ray-march launches {cli_launches}")
+    if run_b.errors.shape != (beam_ticks,) or not (np.isfinite(run_b.errors).all()
+                                                    and mean_b < 0.25):
+        raise AssertionError(f"cli localize --model beam lost the robot: mean {mean_b} m")
+    if cli_launches != beam_ticks:
+        raise AssertionError(f"cli localize --model beam launched the ray march {cli_launches} "
+                             f"times in {beam_ticks} ticks, not once a tick")
 
     scans = pp.preprocess(torch.as_tensor(log.ranges, device=dev), model)
     gt = torch.as_tensor(log.gt_pose, dtype=torch.float32, device=dev)
@@ -1043,19 +1066,23 @@ def localize_phase(cli, log_path, log, smi):
 
     tick_ms = cuda_ms(run_ticks, 2) / ticks
     _, n_ops, busy_s, _ = trace(run_ticks)
-    # One beam-model update at 4096 particles, in chunks reckoned from the bytes.
+    # One beam-model update at 4096 particles: the whole cloud in one
+    # ray-march launch on the card.
     n_samples = int(model.max_range / spec.resolution)
-    chunk = pf._chunk(n_particles, model.n_beams * n_samples * raycast.SIMULATE_BYTES_PER_SAMPLE, None)
     torch.cuda.reset_peak_memory_stats()
+    RK.ray_march.launches = 0
     beam, beam_s = host_s(lambda: pf.update_beam(
         state0, grid, model, scans.ranges[split], valid_at(split)))
+    beam_launches = RK.ray_march.launches
     if not bool(torch.isfinite(beam.log_w).all()):
         raise AssertionError("update_beam gave non-finite weights")
+    if beam_launches != 1:
+        raise AssertionError(f"update_beam launched the ray march {beam_launches} times, not once")
     phase("localize", json.dumps({
         "pf_tick_ms": tick_ms, "particle_updates_per_s": n_particles / tick_ms * 1e3,
         "device_ops_per_tick": n_ops / ticks, "device_busy_ms_per_tick": busy_s / ticks * 1e3,
-        "likelihood_field_ms": field_ms, "update_beam_s": beam_s, "update_beam_chunk": chunk,
-        "update_beam_chunks": -(-n_particles // chunk), "samples_per_beam": n_samples,
+        "likelihood_field_ms": field_ms, "update_beam_s": beam_s,
+        "update_beam_launches": beam_launches, "samples_per_beam": n_samples,
         "update_beam_peak_GiB": torch.cuda.max_memory_allocated() / 2**30, "card": smi}))
 
     # The card against the same functions on the CPU with the same draws.
@@ -1086,6 +1113,54 @@ def localize_phase(cli, log_path, log, smi):
                       f"that differ {moved:.4f}")
     if not ((d > 1e-4).mean() <= 0.05 and d.max() < 0.1 and est_err <= 1e-3 and moved <= 0.05):
         raise AssertionError("the card's particle-filter tick disagrees with the CPU's")
+    return {**march_phase(smi), "launches_localize_cli": cli_launches,
+            "launches_update_beam": beam_launches}
+
+
+def march_phase(smi) -> dict:
+    """The beam model's ray-march kernel at one tick of the beam-model
+    cell's shape (``tools/beam_cell.py``: 4096 poses x 361 beams on a 2 cm
+    map, 2500 samples a beam): its ranges against the dense ladder's,
+    bit for bit; both timed with CUDA events beside the least time by the
+    benchmark's arithmetic (``benchmark/roofline_raycast.py``); the
+    kernel's launches in this check (the timing's are not counted).
+    Returns the kernel's JSON entry."""
+    import beam_cell as cell
+    from benchmark import roofline, roofline_raycast
+    from laser_slam_tpu_torch.localization import raycast
+    from laser_slam_tpu_torch.ops.cuda import raycast_kernel as RK
+
+    grid, model, cloud, ranges, _ = cell.beam_cell()
+    spec = grid.spec
+    before = RK.ray_march.launches
+    got = raycast.simulate_scan(grid, model, cloud)
+    want = cell.ladder_in_chunks(grid, model, cloud)
+    torch.cuda.synchronize()
+    launches = RK.ray_march.launches - before
+    equal = torch.equal(got, want)
+    kernel_ms = cuda_ms(lambda: raycast.simulate_scan(grid, model, cloud), 20)
+    plain_ms = cuda_ms(lambda: cell.ladder_in_chunks(grid, model, cloud), 2)
+    need = int(roofline_raycast.samples_per_scan(ranges.cpu().numpy()[None], model.min_range,
+                                                 model.max_range, spec.resolution)[0])
+    n = cloud.shape[0]
+    bound_s, bound_by = roofline.least_seconds(
+        roofline_raycast.march_ops(n * need),
+        roofline_raycast.tick_bytes(spec.width * spec.height, n, model.n_beams))
+    entry = {
+        "name": "ray_march_kernel (beam-model ray march: 4096 poses x 361 beams, 2500 samples "
+                "a beam, on a 2 cm map of 5.7 k x 5.5 k cells)",
+        "route": "cuda", "source": "laser_slam_tpu_torch/csrc/raycast_kernel.cu",
+        "replaces": None, "launches_march_check": launches, "equal": equal,
+        "max_abs_err": float((got - want).abs().max()), "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": None,
+        "least_samples_per_pose": need, "hits": float((got < model.max_range).float().mean()),
+        "samples_to_hit_mean": float((got[got < model.max_range] / spec.resolution).mean()),
+    }
+    phase("localize", "ray march at the beam cell's shape " + json.dumps({**entry, "card": smi}))
+    if not equal or launches != 1:
+        raise AssertionError(f"the ray march is not the ladder (equal {equal}) or did not launch "
+                             f"once ({launches})")
+    return entry
 
 
 def ate_of(poses, gt) -> float:
@@ -2053,6 +2128,7 @@ def main() -> None:
     from laser_slam_tpu_torch.ops import correlative, odometry, preprocess as pp, psm
     from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
     from laser_slam_tpu_torch.ops.cuda import psm_kernel as K
+    from laser_slam_tpu_torch.ops.cuda import raycast_kernel as RK
     import synthetic_log as synth
 
     dev = torch.device("cuda")
@@ -2068,9 +2144,11 @@ def main() -> None:
     t_build = K.build()
     ptxas = " | ".join(l.strip() for l in K.build_log.splitlines() if "Used" in l or "spill" in l)
     phase("build", f"K1 {K.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
-    t_build = V.build()
-    ptxas = " | ".join(l.strip() for l in V.build_log.splitlines() if "Used" in l or "spill" in l)
-    phase("build", f"{V.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
+    for lib in (V, RK):
+        t_build = lib.build()
+        ptxas = " | ".join(l.strip() for l in lib.build_log.splitlines()
+                           if "Used" in l or "spill" in l)
+        phase("build", f"{lib.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
 
     # -- 3. kernel parity and timing at full size ---------------------------
     tmp = tempfile.TemporaryDirectory()
@@ -2311,7 +2389,7 @@ def main() -> None:
             K, log, smi, stats, psm, odometry, tmp.name)
 
         # -- 7. localization -----------------------------------------------------
-        localize_phase(cli, log_path, log, smi)
+        march = localize_phase(cli, log_path, log, smi)
 
         # -- 8.-11. the distributed topology, the other matchers and verifiers --
         V.score_volume_sparse.launches = 0
@@ -2322,9 +2400,10 @@ def main() -> None:
         features_phase(log, smi)
 
         # -- 12. the robot application path --------------------------------------
-        V.score_volume_sparse.launches = 0
+        V.score_volume_sparse.launches = RK.ray_march.launches = 0
         robot_launches = robot_phase(K, log, smi, tmp.name)
         robot_volume_launches = V.score_volume_sparse.launches
+        robot_march_launches = RK.ray_march.launches
 
         # -- 13. the Kalman and landmark filters ------------------------------------
         fusion_phase(smi)
@@ -2399,6 +2478,8 @@ def main() -> None:
             "max_abs_err": 0.0, "max_abs_err_b1_online": online_b1_diff,
             **corr[181], **{f"{k}_361": v for k, v in corr[361].items()},
         },
+        {**march, "launches": march["launches_localize_cli"] + march["launches_update_beam"]
+         + robot_march_launches, "launches_robot": robot_march_launches},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -181,10 +181,15 @@ def update_beam(
     sigma: float = 0.5,
     chunk: int | None = None,
 ) -> ParticleState:
-    """Ray-cast beam-model update. The ray march holds ``[P, N, S]``
-    samples (``S = max_range / resolution``), so the cloud goes through it
-    in chunks of particles: ``chunk`` particles, or as many as fit
-    ``CHUNK_BYTES``. The result does not depend on the chunk size.
+    """Ray-cast beam-model update. The cloud goes through the ray march
+    in chunks of particles: ``chunk`` particles if given; else, on CUDA,
+    where the kernel holds a few floats a ray, the whole cloud; on the
+    CPU, as many as fit ``CHUNK_BYTES`` in the dense ladder's ``[P, N,
+    S]`` samples (``S = max_range / resolution``). The likelihoods are
+    summed over the beams in the ladder's chunks on either path
+    (``beam_likelihood``'s ``rows``), so the weights equal the ladder's
+    bit for bit: on the card a float32 row sum rounds by the shape it is
+    taken in.
 
     Spans: ``pf.update`` around the whole update, ``pf.raycast`` around
     the chunk loop (the march and the beam likelihood). Counters, host
@@ -192,12 +197,14 @@ def update_beam(
     the chunks the cloud took."""
     with trace("pf.update"):
         n_samples = int(model.max_range / grid.spec.resolution)
-        step = _chunk(state.n, model.n_beams * n_samples * SIMULATE_BYTES_PER_SAMPLE, chunk)
+        rows = _chunk(state.n, model.n_beams * n_samples * SIMULATE_BYTES_PER_SAMPLE, chunk)
+        step = state.n if state.poses.is_cuda and chunk is None else rows
         profiler.count("pf.raycast_rays", state.n * model.n_beams)
         profiler.count("pf.raycast_chunks", -(-state.n // step))
         with trace("pf.raycast"):
             lik = torch.cat([
-                beam_likelihood(grid, model, state.poses[i:i + step], ranges, valid, sigma=sigma)
+                beam_likelihood(grid, model, state.poses[i:i + step], ranges, valid, sigma=sigma,
+                                rows=rows)
                 for i in range(0, state.n, step)
             ])
         return _reweight(state, lik)

@@ -2,7 +2,8 @@
 card: the batch entry against ``psm.match_psm``, its error-index epilogue
 against ``psm.error_index``, the keyframe-chain entry against the step loop
 of ``odometry.odometry_keyframe``. The sparse correlative score-volume
-kernel against the grouped conv of its plain version. Then the
+kernel against the grouped conv of its plain version. The beam model's
+ray-march kernel against the dense ladder of its plain version. Then the
 loop-closure backend on the card: the chunk verifier against the same call
 on the CPU, and ``cli slam`` twice on a short log. Then the later paths on the card: the online
 session, localization, the ICP matchers, the loopback, the robot path,
@@ -25,14 +26,16 @@ from laser_slam_tpu_torch import cli
 from laser_slam_tpu_torch.core import scan as S
 from laser_slam_tpu_torch.core import se2
 from laser_slam_tpu_torch.graph import loop_closure, submap
+from laser_slam_tpu_torch.localization import raycast
 from laser_slam_tpu_torch.ops import correlative, icp_points, odometry
 from laser_slam_tpu_torch.ops import preprocess as pp
 from laser_slam_tpu_torch.ops import psm
-from laser_slam_tpu_torch.ops.cuda import correlative_kernel, psm_kernel
+from laser_slam_tpu_torch.ops.cuda import correlative_kernel, psm_kernel, raycast_kernel
 from laser_slam_tpu_torch.utils.profiling import profiler
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import synthetic_log  # noqa: E402
+import beam_cell as cell  # noqa: E402
 
 POSE_ATOL = 1e-4    # float32 op order (fused multiply-adds, block reductions)
 ERR_RTOL = 1e-4
@@ -501,6 +504,144 @@ def test_update_beam_in_chunks_equals_unchunked(cuda):
     # other device (last bits of cos/sin): a few particles' weights move.
     d = np.abs(parts.log_w.cpu().numpy() - on_cpu.log_w.numpy())
     assert (d > 1e-4).mean() < 0.05 and d.max() < 0.1
+
+
+@pytest.fixture(scope="module")
+def beam_cell():
+    """One tick of the beam-model cell's shape on the card
+    (``tools/beam_cell.py``): a 2 cm map of 5.7 k x 5.5 k cells, 4096 poses
+    of cm spread around the ground truth, 361 beams of 50 m."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return cell.beam_cell(device="cuda")
+
+
+def test_ray_march_is_the_ladder_at_the_cell_shape(beam_cell):
+    """The kernel's ranges at 4096 x 361 rays of 2500 samples equal the
+    dense ladder's bit for bit (the ladder in chunks of 61 poses, as
+    ``update_beam`` ran it); one launch a call."""
+    grid, model, cloud, _, _ = beam_cell
+    before = raycast_kernel.ray_march.launches
+    got = raycast.simulate_scan(grid, model, cloud)
+    torch.cuda.synchronize()
+    assert raycast_kernel.ray_march.launches == before + 1
+    want = cell.ladder_in_chunks(grid, model, cloud)
+    assert got.shape == (4096, 361)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    hit = want < model.max_range
+    assert 0.5 < float(hit.float().mean()) and float(want.min()) > 0
+
+
+# A map of x in [-3.5, 3], y in [-3, 3] of the 8 x 8 m room (x in [-3, 5],
+# y in [-4, 4]): three of its walls lie off the map, so most rays leave it.
+ROOM_SPEC = (-3.5, -3.0, 0.05, 130, 120)
+ROOM_MODEL = S.LMS211.with_start(-np.pi / 2, 10.0)
+
+
+def _room_on(dev):
+    """The room seen from ten poses, integrated into the map of
+    ``ROOM_SPEC``, with the band y in [1.5, 2.0) reset to unknown cells;
+    a cloud near one pose and poses off the map, each facing it or not."""
+    from laser_slam_tpu_torch.mapping import occupancy as occ
+
+    poses = np.asarray([(-1.0 + 0.15 * i, 1.0 - 0.05 * i, -1.0 + 0.3 * i) for i in range(10)],
+                       np.float32)
+    r = synthetic_log.ray_cast(synthetic_log.room_walls(), poses.astype(np.float64),
+                               ROOM_MODEL.bearings(torch.float64).numpy(), ROOM_MODEL.max_range)
+    scans = pp.preprocess(torch.as_tensor(r.astype(np.float32), device=dev), ROOM_MODEL)
+    spec = occ.GridSpec2D(*ROOM_SPEC)
+    grid = occ.integrate_scans(occ.empty_grid(spec, device=dev), ROOM_MODEL, scans,
+                               torch.as_tensor(poses, device=dev))
+    log_odds = grid.log_odds.clone()
+    log_odds[90:100] = 0.0
+    rng = np.random.default_rng(0)
+    near = poses[2] + rng.normal(0.0, 1.0, (18, 3)) * np.asarray([0.02, 0.02, 0.01])
+    off = [(3.6, 0.5, np.pi), (0.0, 3.4, -1.5), (0.5, -3.3, 1.7), (-4.0, 0.0, np.pi),
+           (-4.0, 0.0, 0.0), (100.0, 100.0, 0.3)]
+    cloud = np.concatenate([near, np.asarray(off)]).astype(np.float32)
+    return occ.OccupancyGrid(log_odds, spec), scans, torch.as_tensor(cloud, device=dev)
+
+
+@pytest.mark.parametrize("shape", [(), (24,), (4, 6)])
+@pytest.mark.parametrize("max_range,occ_threshold", [(None, 0.5), (3.0, 0.5), (None, 0.7),
+                                                     (2.0, 0.3)])
+def test_ray_march_is_the_ladder_at_edge_cases(cuda, shape, max_range, occ_threshold):
+    """Poses off the map, rays leaving it, rays through unknown cells, a
+    range shorter than the model's, other thresholds, and poses ``[3]``,
+    ``[P, 3]``, ``[A, B, 3]``: the kernel equals the ladder bit for bit."""
+    grid, _, cloud = _room_on(cuda)
+    poses = cloud[: int(np.prod(shape)) or 1].reshape(*shape, 3)
+    before = raycast_kernel.ray_march.launches
+    got = raycast.simulate_scan(grid, ROOM_MODEL, poses, max_range, occ_threshold)
+    torch.cuda.synchronize()
+    assert raycast_kernel.ray_march.launches == before + 1
+    m = ROOM_MODEL.max_range if max_range is None else max_range
+    want = raycast._simulate_scan_ladder(grid, ROOM_MODEL, poses, max_range, occ_threshold)
+    assert got.shape == (*shape, ROOM_MODEL.n_beams)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if shape:
+        assert (want < m).any() and (want == m).any()
+
+
+@pytest.mark.parametrize("chunk", [None, 100])
+@pytest.mark.parametrize("all_invalid", [False, True])
+def test_update_beam_through_the_kernel_is_the_ladder(cuda, beam_cell, monkeypatch, chunk,
+                                                      all_invalid):
+    """``update_beam`` at the cell's shape through the kernel (the whole
+    cloud in one launch, or a launch a chunk of 100) against the ladder in
+    the chunks it takes (61 poses fill 2 GiB, or 100): the log-weights
+    equal bit for bit."""
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    grid, model, cloud, ranges, valid = beam_cell
+    if all_invalid:
+        valid = torch.zeros_like(valid)
+    state = pf.ParticleState(cloud, torch.full((cloud.shape[0],), -np.log(cloud.shape[0]),
+                                               device=cuda))
+    before = raycast_kernel.ray_march.launches
+    got = pf.update_beam(state, grid, model, ranges, valid, chunk=chunk)
+    torch.cuda.synchronize()
+    assert raycast_kernel.ray_march.launches == before + (1 if chunk is None else 41)
+
+    monkeypatch.setattr(raycast, "simulate_scan", raycast._simulate_scan_ladder)
+    want = pf.update_beam(state, grid, model, ranges, valid, chunk=chunk or 61)
+    assert torch.equal(got.log_w, want.log_w) and torch.equal(got.poses, want.poses)
+
+
+@pytest.mark.parametrize("n_beams", [181, 361])
+@pytest.mark.parametrize("poses,rows", [(4096, 61), (4096, 100), (1000, 16), (1000, 7),
+                                        (1000, 1000), (30, 61)])
+def test_sum_in_chunks_is_the_chunked_sum(cuda, n_beams, poses, rows):
+    """Row sums on the card as calls of ``rows`` rows take them, bit for
+    bit, where one call over all rows differs in the last bit."""
+    x = torch.rand(poses, n_beams, generator=torch.Generator(cuda).manual_seed(rows),
+                   device=cuda)
+    want = torch.cat([x[i:i + rows].clone().sum(-1) for i in range(0, poses, rows)])
+    assert torch.equal(raycast._sum_in_chunks(x, rows), want)
+    if (poses, rows) == (4096, 61):
+        assert not torch.equal(x.sum(-1), want)
+
+
+def test_ray_march_wrapper_rejects_what_it_does_not_take(cuda):
+    occupied = torch.zeros(4, 5, dtype=torch.bool, device=cuda)
+    pose = torch.zeros(2, 3, device=cuda)
+    c = torch.ones(2, 7, device=cuda)
+    args = (0.0, 0.0, 0.05, 100, 5.0)
+    before = raycast_kernel.ray_march.launches
+    for bad in ((occupied.cpu(), pose.cpu(), c.cpu(), c.cpu()),            # CPU tensors
+                (occupied, pose.double(), c.double(), c.double()),         # float64
+                (occupied, pose, c, c.cpu()),                              # on two devices
+                (occupied.float(), pose, c, c),                            # a map of floats
+                (occupied, pose, c.t().contiguous().t(), c)):              # not contiguous
+        with pytest.raises(ValueError):
+            raycast_kernel.ray_march(*bad, *args)
+    with pytest.raises(ValueError, match="float32"):
+        raycast.simulate_scan(_room_on(cuda)[0], ROOM_MODEL, pose.double())
+    assert raycast_kernel.ray_march.launches == before
+    out = raycast_kernel.ray_march(occupied, pose, c, c, *args)
+    torch.cuda.synchronize()
+    assert raycast_kernel.ray_march.launches == before + 1
+    assert out.shape == (2, 7) and (out == 5.0).all()
 
 
 def test_systematic_resample_on_the_card_against_the_cpu(cuda):
