@@ -2141,14 +2141,11 @@ def main() -> None:
                     f"nvidia-smi: {smi}")
 
     # -- 2. build ---------------------------------------------------------
-    t_build = K.build()
-    ptxas = " | ".join(l.strip() for l in K.build_log.splitlines() if "Used" in l or "spill" in l)
-    phase("build", f"K1 {K.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
-    for lib in (V, RK):
-        t_build = lib.build()
-        ptxas = " | ".join(l.strip() for l in lib.build_log.splitlines()
+    for kernel in (K.KERNEL, V.KERNEL, RK.KERNEL):
+        t_build = kernel.build()
+        ptxas = " | ".join(l.strip() for l in kernel.build_log.splitlines()
                            if "Used" in l or "spill" in l)
-        phase("build", f"{lib.SOURCE.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
+        phase("build", f"{kernel.source.relative_to(ROOT)} built in {t_build:.2f}s ({ptxas})")
 
     # -- 3. kernel parity and timing at full size ---------------------------
     tmp = tempfile.TemporaryDirectory()

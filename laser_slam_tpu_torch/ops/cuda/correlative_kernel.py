@@ -16,36 +16,18 @@ The source is built by :mod:`.nvcc` at first use.
 
 from __future__ import annotations
 
-import ctypes
-import time
+from ctypes import c_int, c_void_p
 
 import torch
 
 from . import nvcc
 
-SOURCE = nvcc.PKG / "csrc" / "correlative_kernel.cu"
 MAX_POINTS = 4096   # points a (row, rotation): the kernel sorts them in shared memory
 
-_lib = None
-build_log = ""   # nvcc's output (ptxas register / shared-memory report)
-
-
-def build() -> float:
-    """Compile (if needed) and load the kernel library; returns the
-    seconds spent, 0 when it was already loaded."""
-    global _lib, build_log
-    with nvcc.LOCK:
-        if _lib is not None:
-            return 0.0
-        t0 = time.perf_counter()
-        lib, build_log = nvcc.load(SOURCE)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.corr_volume_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-        lib.corr_volume_launch.restype = ci
-        lib.corr_error_string.argtypes = [ci]
-        lib.corr_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return time.perf_counter() - t0
+KERNEL = nvcc.Kernel(nvcc.PKG / "csrc" / "correlative_kernel.cu", {
+    # planes, cells, out, n_planes, batch, k_rot, n, g, n_steps, device, stream
+    "corr_volume_launch": [*[c_void_p] * 3, *[c_int] * 7, c_void_p],
+}, "corr_error_string")
 
 
 def score_volume_sparse(planes: torch.Tensor, cells: torch.Tensor, n_steps: int) -> torch.Tensor:
@@ -86,11 +68,6 @@ def score_volume_sparse(planes: torch.Tensor, cells: torch.Tensor, n_steps: int)
 
 
 def _launch(planes: torch.Tensor, cells: torch.Tensor, n_steps: int) -> torch.Tensor:
-    """The launch, as the CUDA kernel of an operator of PyTorch's
-    dispatcher: under ``torch.profiler`` the kernel is then linked to the
-    operator, and through it to the program's span around the call, as
-    PyTorch's own kernels are (a launch from outside any operator is
-    linked to none)."""
     c, b, g, _ = planes.shape
     _, k, n = cells.shape
     t = 2 * n_steps + 1
@@ -98,20 +75,11 @@ def _launch(planes: torch.Tensor, cells: torch.Tensor, n_steps: int) -> torch.Te
     out = torch.empty(c, b, k, t, t, dtype=torch.float32, device=dev)
     if b * k == 0:
         return out
-    build()
-    rc = _lib.corr_volume_launch(
-        planes.data_ptr(), cells.data_ptr(), out.data_ptr(), c, b, k, n, g, n_steps,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"correlative volume launch failed: "
-                           f"{_lib.corr_error_string(rc).decode()}")
+    KERNEL.launch("corr_volume_launch", planes.data_ptr(), cells.data_ptr(), out.data_ptr(),
+                  c, b, k, n, g, n_steps, device=dev)
     score_volume_sparse.launches += 1
     return out
 
 
 score_volume_sparse.launches = 0
-_OPS = torch.library.Library("laser_slam_tpu_torch", "DEF")
-_OPS.define("corr_volume(Tensor planes, Tensor cells, int n_steps) -> Tensor")
-_OPS.impl("corr_volume", _launch, "CUDA")
+nvcc.register("corr_volume(Tensor planes, Tensor cells, int n_steps) -> Tensor", _launch)

@@ -11,60 +11,38 @@ two entries over one set of device functions:
   whole log in one launch (the plain version is the loop of
   ``odometry._step``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` beside the package at first use (keyed by a hash of
-the source and flags) and loaded with ``ctypes``. CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise.
+The source is built by :mod:`.nvcc` at first use, and each entry
+launches as an operator of PyTorch's dispatcher
+(``laser_slam_tpu_torch::psm_match``, ``::psm_chain``). CPU tensors take
+the plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
-import ctypes
-import time
+from ctypes import c_float, c_int, c_void_p
 
 import torch
 
-from ...core import se2
 from ...core.scan import LaserModel, Scan
 from .. import psm
 from ..project import _pair_valid_from_seg
 from . import nvcc
 
-SOURCE = nvcc.PKG / "csrc" / "psm_kernel.cu"
 MAX_BEAMS = 544
 
-_lib = None
-build_log = ""   # nvcc's output (ptxas register / shared-memory report)
+_MODEL = [c_int, c_int, c_float, c_float, c_float, c_float, c_int, c_int, c_int]
+KERNEL = nvcc.Kernel(nvcc.PKG / "csrc" / "psm_kernel.cu", {
+    # tensors, batch, model, device, stream
+    "psm_match_launch": [*[c_void_p] * 15, c_int, *_MODEL, c_int, c_void_p],
+    # tensors, n_scans, model, the two thresholds, device, stream
+    "psm_chain_launch": [*[c_void_p] * 9, c_int, *_MODEL, c_float, c_float, c_int, c_void_p],
+}, "psm_error_string")
 
 
-def build(flags: tuple = nvcc.NVCC_FLAGS) -> float:
-    """Compile (if needed, with ``nvcc`` ``flags``) and load the kernel
-    library; returns the seconds spent, 0 when it was already loaded."""
-    global _lib, build_log
-    with nvcc.LOCK:
-        if _lib is not None:
-            return 0.0
-        t0 = time.perf_counter()
-        lib, build_log = nvcc.load(SOURCE, flags)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        model_args = [ci, ci, cf, cf, cf, cf, ci, ci, ci]   # n ... change_weight_it
-        lib.psm_match_launch.argtypes = [
-            *[vp] * 15,            # tensors
-            ci, *model_args,       # batch, model
-            ci, vp,                # device, stream
-        ]
-        lib.psm_match_launch.restype = ci
-        lib.psm_chain_launch.argtypes = [
-            *[vp] * 9,             # tensors
-            ci, *model_args,       # n_scans, model
-            cf, cf,                # thresholds
-            ci, vp,                # device, stream
-        ]
-        lib.psm_chain_launch.restype = ci
-        lib.psm_error_string.argtypes = [ci]
-        lib.psm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return time.perf_counter() - t0
+def build() -> float:
+    """Compile (if needed) and load the kernel library; returns the
+    seconds spent, 0 when it was already loaded."""
+    return KERNEL.build()
 
 
 def _check(fn: str, name: str, t: torch.Tensor, dtype, shape, dev) -> None:
@@ -87,15 +65,6 @@ def _model_args(model: LaserModel) -> tuple:
         psm.WEIGHTING_FACTOR, model.min_valid_points, psm.MAX_ITER // 2,
         psm.CHANGE_WEIGHT_ITER // 2,
     )
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: {_lib.psm_error_string(rc).decode()}")
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _ptr(t: torch.Tensor | None):
@@ -153,29 +122,11 @@ def match_psm_fused(
         _check(fn, "error_ref.ranges", error_ref.ranges, torch.float32, (b, n), dev)
         _check(fn, "error_ref.bad", error_ref.bad, torch.bool, (b, n), dev)
 
-    build()
     pair_ok = _pair_valid_from_seg(cur).contiguous()
     fi = model.bearings(torch.float32, dev)
-    pose = torch.empty(b, 3, dtype=torch.float32, device=dev)
-    err = torch.empty(b, dtype=torch.float32, device=dev)
-    fail = torch.empty(b, dtype=torch.bool, device=dev)
-    iters = torch.empty(b, dtype=torch.int32, device=dev)
-    ex = ey = en = None
-    if error_ref is not None:
-        ex = torch.empty(b, dtype=torch.float32, device=dev)
-        ey = torch.empty(b, dtype=torch.float32, device=dev)
-        en = torch.empty(b, dtype=torch.int32, device=dev)
-    rc = _lib.psm_match_launch(
-        ref.ranges.data_ptr(), ref.bad.data_ptr(), cur.ranges.data_ptr(),
-        pair_ok.data_ptr(),
-        _ptr(error_ref and error_ref.ranges), _ptr(error_ref and error_ref.bad),
-        fi.data_ptr(), init_pose.data_ptr(),
-        pose.data_ptr(), err.data_ptr(), fail.data_ptr(), iters.data_ptr(),
-        _ptr(ex), _ptr(ey), _ptr(en),
-        b, *_model_args(model), _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "PSM kernel")
+    pose, err, fail, iters, ex, ey, en = torch.ops.laser_slam_tpu_torch.psm_match.default(
+        ref.ranges, ref.bad, cur.ranges, pair_ok, error_ref and error_ref.ranges,
+        error_ref and error_ref.bad, fi, init_pose, *_model_args(model))
     match_psm_fused.launches += 1
     match_psm_fused.last_iters = iters
     res = psm.MatchResult(
@@ -221,23 +172,13 @@ def odometry_chain_fused(
     _check(fn, "scans.bad", scans.bad, torch.bool, (t, n), dev)
     _on_device(fn, "scans", scans, dev)
 
-    poses = torch.empty(t - 1, 3, dtype=torch.float32, device=dev)
-    switched, discarded, deep = (
-        torch.empty(t - 1, dtype=torch.bool, device=dev) for _ in range(3))
-    iters = torch.empty(t - 1, 2, dtype=torch.int32, device=dev)
     if t == 1:
-        return poses, switched, discarded, deep
-    build()
+        return (torch.empty(0, 3, dtype=torch.float32, device=dev),
+                *(torch.empty(0, dtype=torch.bool, device=dev) for _ in range(3)))
     pair_ok = _pair_valid_from_seg(scans).contiguous()
     fi = model.bearings(torch.float32, dev)
-    rc = _lib.psm_chain_launch(
-        scans.ranges.data_ptr(), scans.bad.data_ptr(), pair_ok.data_ptr(),
-        fi.data_ptr(), poses.data_ptr(), switched.data_ptr(), discarded.data_ptr(),
-        deep.data_ptr(), iters.data_ptr(),
-        t, *_model_args(model), switch_thresh, weak_thresh, _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "PSM chain kernel")
+    poses, switched, discarded, deep, iters = torch.ops.laser_slam_tpu_torch.psm_chain.default(
+        scans.ranges, scans.bad, pair_ok, fi, *_model_args(model), switch_thresh, weak_thresh)
     odometry_chain_fused.launches += 1
     odometry_chain_fused.last_iters = iters
     return poses, switched, discarded, deep
@@ -245,3 +186,49 @@ def odometry_chain_fused(
 
 odometry_chain_fused.launches = 0
 odometry_chain_fused.last_iters = None
+
+
+def _match(ref_r, ref_bad, cur_r, pair_ok, eref_r, eref_bad, fi, init, *model):
+    b = cur_r.shape[0]
+    dev = cur_r.device
+    pose = torch.empty(b, 3, dtype=torch.float32, device=dev)
+    err = torch.empty(b, dtype=torch.float32, device=dev)
+    fail = torch.empty(b, dtype=torch.bool, device=dev)
+    iters = torch.empty(b, dtype=torch.int32, device=dev)
+    ex = ey = en = None
+    if eref_r is not None:
+        ex = torch.empty(b, dtype=torch.float32, device=dev)
+        ey = torch.empty(b, dtype=torch.float32, device=dev)
+        en = torch.empty(b, dtype=torch.int32, device=dev)
+    KERNEL.launch(
+        "psm_match_launch", ref_r.data_ptr(), ref_bad.data_ptr(), cur_r.data_ptr(),
+        pair_ok.data_ptr(), _ptr(eref_r), _ptr(eref_bad), fi.data_ptr(), init.data_ptr(),
+        pose.data_ptr(), err.data_ptr(), fail.data_ptr(), iters.data_ptr(),
+        _ptr(ex), _ptr(ey), _ptr(en), b, *model, device=dev,
+    )
+    return pose, err, fail, iters, ex, ey, en
+
+
+def _chain(ranges, bad, pair_ok, fi, *args):
+    t = ranges.shape[0]
+    dev = ranges.device
+    poses = torch.empty(t - 1, 3, dtype=torch.float32, device=dev)
+    switched, discarded, deep = (
+        torch.empty(t - 1, dtype=torch.bool, device=dev) for _ in range(3))
+    iters = torch.empty(t - 1, 2, dtype=torch.int32, device=dev)
+    KERNEL.launch(
+        "psm_chain_launch", ranges.data_ptr(), bad.data_ptr(), pair_ok.data_ptr(),
+        fi.data_ptr(), poses.data_ptr(), switched.data_ptr(), discarded.data_ptr(),
+        deep.data_ptr(), iters.data_ptr(), t, *args, device=dev,
+    )
+    return poses, switched, discarded, deep, iters
+
+
+_MODEL_ARGS = ("int n, int window, float dfi, float min_range, float max_range, float weighting, "
+               "int min_valid_points, int max_iters, int change_weight_it")
+nvcc.register(f"psm_match(Tensor ref_r, Tensor ref_bad, Tensor cur_r, Tensor pair_ok, "
+              f"Tensor? eref_r, Tensor? eref_bad, Tensor fi, Tensor init, {_MODEL_ARGS}) -> "
+              f"(Tensor, Tensor, Tensor, Tensor, Tensor?, Tensor?, Tensor?)", _match)
+nvcc.register(f"psm_chain(Tensor ranges, Tensor bad, Tensor pair_ok, Tensor fi, {_MODEL_ARGS}, "
+              f"float switch_thresh, float weak_thresh) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+              _chain)

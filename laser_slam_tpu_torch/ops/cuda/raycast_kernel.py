@@ -14,44 +14,22 @@ The source is built by :mod:`.nvcc` at first use.
 
 from __future__ import annotations
 
-import ctypes
-import time
+from ctypes import c_float, c_int, c_void_p
 
 import numpy as np
 import torch
 
 from . import nvcc
 
-SOURCE = nvcc.PKG / "csrc" / "raycast_kernel.cu"
 MAX_SAMPLES = 1 << 24     # samples a ray: the kernel counts them in exact float32
 MAX_BEAMS = 65535         # beams: the launch's second grid dimension
 
-_lib = None
-build_log = ""   # nvcc's output (ptxas register / shared-memory report)
-
-
-def build() -> float:
-    """Compile (if needed) and load the kernel library; returns the
-    seconds spent, 0 when it was already loaded."""
-    global _lib, build_log
-    with nvcc.LOCK:
-        if _lib is not None:
-            return 0.0
-        t0 = time.perf_counter()
-        lib, build_log = nvcc.load(SOURCE)
-        _lib = bind(lib)
-        return time.perf_counter() - t0
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C interface of a library built from :data:`SOURCE`."""
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ray_march_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci,
-                                     cf, cf, cf, cf, ci, cf, ci, vp]
-    lib.ray_march_launch.restype = ci
-    lib.ray_march_error_string.argtypes = [ci]
-    lib.ray_march_error_string.restype = ctypes.c_char_p
-    return lib
+KERNEL = nvcc.Kernel(nvcc.PKG / "csrc" / "raycast_kernel.cu", {
+    # occupied, height, width, pose, cos_a, sin_a, out, n_poses, n_beams, origin_x, origin_y,
+    # inv_res, res, n_samples, max_range, device, stream
+    "ray_march_launch": [c_void_p, c_int, c_int, *[c_void_p] * 4, c_int, c_int,
+                         *[c_float] * 4, c_int, c_float, c_int, c_void_p],
+}, "ray_march_error_string")
 
 
 def ray_march(occupied: torch.Tensor, pose: torch.Tensor, cos_a: torch.Tensor,
@@ -98,35 +76,24 @@ def ray_march(occupied: torch.Tensor, pose: torch.Tensor, cos_a: torch.Tensor,
 def _launch(occupied: torch.Tensor, pose: torch.Tensor, cos_a: torch.Tensor,
             sin_a: torch.Tensor, origin_x: float, origin_y: float, resolution: float,
             n_samples: int, max_range: float) -> torch.Tensor:
-    """The launch, as the CUDA kernel of an operator of PyTorch's
-    dispatcher: under ``torch.profiler`` the kernel is then linked to the
-    operator, and through it to the program's span around the call, as
-    PyTorch's own kernels are (a launch from outside any operator is
-    linked to none)."""
     r, n = cos_a.shape
     h, w = occupied.shape
     dev = pose.device
     out = torch.empty(r, n, dtype=torch.float32, device=dev)
     if r * n == 0:
         return out
-    build()
     # ATen divides a CUDA tensor by a Python scalar as a multiplication by
     # the scalar's float32 reciprocal, computed in float32.
     inv_res = float(np.float32(1.0) / np.float32(resolution))
-    rc = _lib.ray_march_launch(
-        occupied.data_ptr(), h, w, pose.data_ptr(), cos_a.data_ptr(),
+    KERNEL.launch(
+        "ray_march_launch", occupied.data_ptr(), h, w, pose.data_ptr(), cos_a.data_ptr(),
         sin_a.data_ptr(), out.data_ptr(), r, n, origin_x, origin_y, inv_res, resolution,
-        n_samples, max_range, dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        n_samples, max_range, device=dev,
     )
-    if rc != 0:
-        raise RuntimeError(f"ray march launch failed: {_lib.ray_march_error_string(rc).decode()}")
     ray_march.launches += 1
     return out
 
 
 ray_march.launches = 0
-_OPS = torch.library.Library("laser_slam_tpu_torch", "FRAGMENT")
-_OPS.define("ray_march(Tensor occupied, Tensor pose, Tensor cos_a, Tensor sin_a, float origin_x, "
-            "float origin_y, float resolution, int n_samples, float max_range) -> Tensor")
-_OPS.impl("ray_march", _launch, "CUDA")
+nvcc.register("ray_march(Tensor occupied, Tensor pose, Tensor cos_a, Tensor sin_a, float origin_x, "
+              "float origin_y, float resolution, int n_samples, float max_range) -> Tensor", _launch)

@@ -148,35 +148,50 @@ def test_the_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_first_builds_from_two_threads_run_nvcc_once(tmp_path, monkeypatch):
-    """The online session first calls the kernel from its frontend and its
-    background round at once: the two loads of one source must share one
-    ``nvcc`` run and one library."""
+    """The online session first calls the kernels from its frontend and its
+    background round at once: two builds of one kernel, and a kernel of
+    the same source, must share one ``nvcc`` run and one library, each
+    loaded once and its entries declared from the kernel's table."""
+    import ctypes
     import threading
     import time
     from types import SimpleNamespace
 
     from laser_slam_tpu_torch.ops.cuda import nvcc
 
-    runs = []
+    runs, loads = [], []
 
     def fake_nvcc(cmd, **kw):
         runs.append(cmd)
         time.sleep(0.2)
         with open(cmd[cmd.index("-o") + 1], "wb") as f:
             f.write(b"lib")
-        return SimpleNamespace(returncode=0, stdout="", stderr="")
+        return SimpleNamespace(returncode=0, stdout="ptxas info", stderr="")
+
+    class FakeLibrary:
+        def __init__(self, path):
+            loads.append(path)
+            self.path = path
+            self.k_launch, self.k_error_string = SimpleNamespace(), SimpleNamespace()
 
     monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(nvcc, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(nvcc.subprocess, "run", fake_nvcc)
-    monkeypatch.setattr(nvcc.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(nvcc.ctypes, "CDLL", FakeLibrary)
     src = tmp_path / "k.cu"
     src.write_text("// a kernel")
-    got = []
-    threads = [threading.Thread(target=lambda: got.append(nvcc.load(src)[0])) for _ in range(2)]
+    a, b = (nvcc.Kernel(src, {"k_launch": [ctypes.c_void_p, ctypes.c_int]}, "k_error_string")
+            for _ in range(2))
+    seconds = []
+    threads = [threading.Thread(target=lambda k=k: seconds.append(k.build())) for k in (a, a, b)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    assert len(runs) == 1 and len(got) == 2 and got[0] == got[1]
-    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == [got[0].rsplit("/", 1)[1]]
+    assert len(runs) == 1 and len(loads) == 2 and a.lib.path == b.lib.path
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == [a.lib.path.rsplit("/", 1)[1]]
+    assert seconds.count(0.0) == 1 and "ptxas info" in a.build_log + b.build_log
+    assert a.lib.k_launch.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert a.lib.k_launch.restype is ctypes.c_int
+    assert (a.lib.k_error_string.argtypes, a.lib.k_error_string.restype) == (
+        [ctypes.c_int], ctypes.c_char_p)

@@ -194,6 +194,36 @@ def test_chain_entry_edge_cases(cuda):
         psm_kernel.odometry_chain_fused(model, scans.to("cpu"), 0.05, 0.10)
 
 
+def test_chain_kernel_is_credited_to_the_odometry_chain_span(cuda):
+    """Under a ``torch.profiler`` window K1's chain entry launches inside its
+    dispatcher operator, so the profiler credits ``psm_chain_kernel``'s
+    device time to the program's ``odometry.chain`` span around the call;
+    the window changes no pose."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = S.LMS211
+    scans, ts = synthetic_scans(model, 300, cuda, blind=(40, 41, 90))
+    plain = odometry.odometry_keyframe(model, scans, deep_chunk=8, timestamps=ts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = odometry.odometry_keyframe(model, scans, deep_chunk=8, timestamps=ts)
+        torch.cuda.synchronize()
+    assert torch.equal(traced.poses, plain.poses)
+
+    def kernels(event):
+        yield from event.kernels
+        for child in event.cpu_children:
+            yield from kernels(child)
+
+    chain = [e for e in prof.events()
+             if e.name == "odometry.chain" and e.device_type == DeviceType.CPU]
+    assert len(chain) == 1
+    k1 = [k for k in kernels(chain[0]) if "psm_chain_kernel" in k.name]
+    assert len(k1) == 1 and k1[0].duration > 0
+    assert chain[0].device_time_total >= k1[0].duration
+
+
 # -- the sparse correlative score-volume kernel ---------------------------------
 
 def _volume_pair(planes, pts, ok, thetas, base, res, half_extent, n_steps):
