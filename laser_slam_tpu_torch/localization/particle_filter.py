@@ -25,10 +25,19 @@ Where a rank decides (``estimate``, ``dispersion``, the kept samples of
 ``global_relocalize``), equal scores are the rule: log-weights are equal
 right after a resample, and every sample outside free space scores 0.
 Among equals the lower index wins (a stable descending sort).
+
+The tick's four phases (``predict_with_noise``, ``update_field``,
+``maybe_resample_at``, ``estimate``) each issue tens of small kernels.
+On CUDA tensors each phase replays a captured CUDA graph of its device
+work from its second call with the same shapes and scalars on
+(``GRAPHS``, ``utils/cuda_graphs``): the same kernels, bit for bit, for
+the host cost of the copies in, one replay and the clones out. Every
+other call, on the CPU among them, runs the phase's code eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -37,6 +46,7 @@ from ..core import se2
 from ..core.scan import LaserModel
 from ..mapping.occupancy import OccupancyGrid
 from ..ops.icp_points import match_icp_points
+from ..utils.cuda_graphs import GraphCache
 from ..utils.profiling import profiler, trace
 from .raycast import (
     SIMULATE_BYTES_PER_SAMPLE,
@@ -51,6 +61,12 @@ PREDICT_SIGMA_XY = 0.25       # [m]
 PREDICT_SIGMA_THETA = 0.15    # [rad]
 NEFF_RESAMPLE_FRACTION = 0.5
 TOP_K = 8                     # top-K weighted mean
+
+GRAPHS = GraphCache("pf")
+"""The captured graphs of the tick's phases, keyed by each phase's body
+and what it binds; counters ``pf.graph_captures`` and
+``pf.graph_replays``. A test that monkeypatches a callee of a phase on
+CUDA tensors clears it."""
 
 # Device memory one chunk of particles may hold in ``update_beam`` and
 # ``update_icp``, whose intermediates grow with particles × beams ×
@@ -136,9 +152,14 @@ def predict_with_noise(
     """Propagate every particle by the odometry increment ``rel [3]``
     plus the given standard-normal draws, scaled."""
     with trace("pf.predict"):
-        moved = se2.compose(state.poses, rel[None, :])
-        return ParticleState(
-            poses=_jitter(moved, noise_xy, noise_t, sigma_xy, sigma_theta), log_w=state.log_w)
+        poses = GRAPHS(functools.partial(_predicted, sigma_xy=sigma_xy, sigma_theta=sigma_theta),
+                       state.poses, rel, noise_xy, noise_t)
+        return ParticleState(poses=poses, log_w=state.log_w)
+
+
+def _predicted(poses: Tensor, rel: Tensor, noise_xy: Tensor, noise_t: Tensor,
+               sigma_xy: float, sigma_theta: float) -> Tensor:
+    return _jitter(se2.compose(poses, rel[None, :]), noise_xy, noise_t, sigma_xy, sigma_theta)
 
 
 def predict(
@@ -153,9 +174,13 @@ def predict(
     return predict_with_noise(state, rel, noise_xy, noise_t, sigma_xy, sigma_theta)
 
 
+def _reweighted(log_w: Tensor, lik: Tensor) -> Tensor:
+    return _normalize(log_w + torch.log(lik + 1e-12))
+
+
 def _reweight(state: ParticleState, lik: Tensor, poses: Tensor | None = None) -> ParticleState:
-    log_w = _normalize(state.log_w + torch.log(lik + 1e-12))
-    return ParticleState(poses=state.poses if poses is None else poses, log_w=log_w)
+    return ParticleState(poses=state.poses if poses is None else poses,
+                         log_w=_reweighted(state.log_w, lik))
 
 
 def update_field(
@@ -166,10 +191,17 @@ def update_field(
     ranges: Tensor,
     valid: Tensor,
 ) -> ParticleState:
-    """Likelihood-field weight update (one batched gather of ``[P, N]``)."""
+    """Likelihood-field weight update (one batched gather of ``[P, N]``).
+    The field is read where it lies: its graph is keyed by its address."""
     with trace("pf.update"):
-        return _reweight(
-            state, endpoint_likelihood(field, grid.spec, model, state.poses, ranges, valid))
+        log_w = GRAPHS(functools.partial(_field_weights, field, grid.spec, model),
+                       state.poses, state.log_w, ranges, valid)
+        return ParticleState(poses=state.poses, log_w=log_w)
+
+
+def _field_weights(field: Tensor, spec, model: LaserModel, poses: Tensor, log_w: Tensor,
+                   ranges: Tensor, valid: Tensor) -> Tensor:
+    return _reweighted(log_w, endpoint_likelihood(field, spec, model, poses, ranges, valid))
 
 
 def update_beam(
@@ -274,11 +306,17 @@ def systematic_resample(state: ParticleState, generator: torch.Generator) -> Par
 
 def maybe_resample_at(state: ParticleState, u: Tensor | float) -> ParticleState:
     """Resample (from the uniform draw ``u``) when Neff < 0.5·P; a select
-    on the device, no host read."""
+    on the device, no host read. A Python number ``u`` is never baked
+    into a graph: such a call runs eagerly."""
     with trace("pf.resample"):
-        do = neff(state) < NEFF_RESAMPLE_FRACTION * state.n
-        resampled = systematic_resample_at(state, u)
-        return ParticleState(*(torch.where(do, a, b) for a, b in zip(resampled, state)))
+        return ParticleState(*GRAPHS(_maybe_resampled, state.poses, state.log_w, u))
+
+
+def _maybe_resampled(poses: Tensor, log_w: Tensor, u: Tensor | float) -> tuple[Tensor, Tensor]:
+    state = ParticleState(poses, log_w)
+    do = neff(state) < NEFF_RESAMPLE_FRACTION * state.n
+    resampled = systematic_resample_at(state, u)
+    return tuple(torch.where(do, a, b) for a, b in zip(resampled, state))
 
 
 def maybe_resample(state: ParticleState, generator: torch.Generator) -> ParticleState:
@@ -290,15 +328,19 @@ def estimate(state: ParticleState, top_k: int = TOP_K) -> Tensor:
     """Weighted mean over the top-K particles with circular angle
     averaging."""
     with trace("pf.estimate"):
-        k = min(top_k, state.n)
-        vals, idx = _top(state.log_w, k)
-        w = torch.exp(vals - torch.logsumexp(vals, dim=0))
-        sel = state.poses[idx]
-        x = torch.sum(w * sel[:, 0])
-        y = torch.sum(w * sel[:, 1])
-        c = torch.sum(w * torch.cos(sel[:, 2]))
-        s = torch.sum(w * torch.sin(sel[:, 2]))
-        return torch.stack([x, y, torch.atan2(s, c)])
+        return GRAPHS(functools.partial(_estimated, top_k=top_k), state.poses, state.log_w)
+
+
+def _estimated(poses: Tensor, log_w: Tensor, top_k: int) -> Tensor:
+    k = min(top_k, poses.shape[0])
+    vals, idx = _top(log_w, k)
+    w = torch.exp(vals - torch.logsumexp(vals, dim=0))
+    sel = poses[idx]
+    x = torch.sum(w * sel[:, 0])
+    y = torch.sum(w * sel[:, 1])
+    c = torch.sum(w * torch.cos(sel[:, 2]))
+    s = torch.sum(w * torch.sin(sel[:, 2]))
+    return torch.stack([x, y, torch.atan2(s, c)])
 
 
 def dispersion(state: ParticleState, top_k: int = TOP_K) -> Tensor:

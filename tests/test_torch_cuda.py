@@ -8,7 +8,8 @@ loop-closure backend on the card: the chunk verifier against the same call
 on the CPU, and ``cli slam`` twice on a short log. Then the later paths on the card: the online
 session, localization, the ICP matchers, the loopback, the robot path,
 the landmark filters against the CPU with the same draws, and
-``parallel/`` on a one-rank NCCL group. These tests need a CUDA device and skip
+``parallel/`` on a one-rank NCCL group. The particle filter's phases as
+captured CUDA graphs against their eager bodies. These tests need a CUDA device and skip
 without one; they import no jax, so that they run where only PyTorch is
 installed:
 
@@ -31,9 +32,11 @@ from laser_slam_tpu_torch.ops import correlative, icp_points, odometry
 from laser_slam_tpu_torch.ops import preprocess as pp
 from laser_slam_tpu_torch.ops import psm
 from laser_slam_tpu_torch.ops.cuda import correlative_kernel, psm_kernel, raycast_kernel
+from laser_slam_tpu_torch.utils import cuda_graphs
 from laser_slam_tpu_torch.utils.profiling import profiler
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import synthetic_log  # noqa: E402
 import beam_cell as cell  # noqa: E402
 
@@ -691,6 +694,268 @@ def test_systematic_resample_on_the_card_against_the_cpu(cuda):
     i_cpu, i_card = on_cpu.poses[:, 0].numpy(), on_card.poses[:, 0].cpu().numpy()
     differ = i_cpu != i_card
     assert differ.mean() < 0.01 and np.abs(i_cpu - i_card).max() <= 1
+
+
+# -- the PF tick's phases as captured CUDA graphs -------------------------------
+
+@pytest.fixture(scope="module")
+def field_lap():
+    """``fr079.localize``'s shape at a third of its length on the card: a
+    160-scan synthetic log at 361 beams, the 5 cm map of its first half at
+    ground truth and the map's likelihood field. Returns ``(model, scans,
+    gt, grid, field)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from laser_slam_tpu_torch.mapping import occupancy as occ
+
+    dev = torch.device("cuda")
+    model = S.PRESETS["LMS511"].with_start(-np.pi / 2)
+    synth = synthetic_log
+    gt, _ = synth.trajectory(160, seed=3)
+    r = synth.ray_cast(synth.floor_plan(), gt, model.bearings(torch.float64).numpy())
+    rng = np.random.default_rng(4)
+    r = np.where(r <= synth.MAX_RANGE, r + rng.normal(0.0, synth.NOISE, r.shape), r)
+    scans = pp.preprocess(torch.as_tensor(r.astype(np.float32), device=dev), model)
+    poses = torch.as_tensor(gt, dtype=torch.float32, device=dev)
+    spec = occ.spec_for_trajectory(gt, model.max_range, 0.05)
+    grid = occ.integrate_scans(occ.empty_grid(spec, device=dev), model,
+                               S.Scan(*(x[:80] for x in scans)), poses[:80])
+    return model, scans, poses, grid, raycast.likelihood_field(grid)
+
+
+def _pf_inputs(field_lap, n, ticks, seed=0):
+    """The first cloud and each tick's inputs as the benchmark's driver
+    hands them over: the increment, views into draws made in one call, the
+    scan and its mask."""
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    model, scans, gt, _, _ = field_lap
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    xy = torch.randn(ticks, n, 2, generator=g, device="cuda")
+    th = torch.randn(ticks, n, generator=g, device="cuda")
+    u = torch.rand(ticks, generator=g, device="cuda")
+    start = pf.init_from_noise(gt[80], torch.randn(n, 2, generator=g, device="cuda"),
+                               torch.randn(n, generator=g, device="cuda"))
+    steps = [(se2.relative(gt[t - 1], gt[t]), xy[k], th[k], scans.ranges[t],
+              ~scans.bad[t] & (scans.ranges[t] < model.max_range), u[k])
+             for k, t in enumerate(range(81, 81 + ticks))]
+    return start, steps
+
+
+def _pf_tick(pf, field_lap, state, step):
+    _, _, _, grid, field = field_lap
+    rel, xy, th, ranges, valid, u = step
+    state = pf.predict_with_noise(state, rel, xy, th, 0.05, 0.03)
+    state = pf.update_field(state, field, grid, field_lap[0], ranges, valid)
+    state = pf.maybe_resample_at(state, u)
+    return state, pf.estimate(state)
+
+
+@pytest.fixture
+def pf_graphs():
+    """The phases' graph cache, empty, and the registry on and empty."""
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    pf.GRAPHS.clear()
+    profiler.disable()
+    profiler.reset()
+    profiler.enable()
+    yield pf
+    profiler.disable()
+    profiler.reset()
+    pf.GRAPHS.clear()
+
+
+def _graph_counts():
+    counts = profiler.counts()
+    return counts.get("pf.graph_captures", 0), counts.get("pf.graph_replays", 0)
+
+
+def test_pf_graphs_are_the_eager_phases_bit_for_bit(field_lap, pf_graphs):
+    """A lap of 79 ticks at 4096 particles and 361 beams: each graphed
+    phase's output equals its eager body's on the same inputs bit for bit,
+    and the lap's estimates equal the benchmark's frozen eager copy of the
+    filter; captures 4, replays 4 x (ticks - 1)."""
+    from benchmark.reference.slam.localization import particle_filter as frozen
+
+    pf = pf_graphs
+    model, _, _, grid, field = field_lap
+    state, steps = _pf_inputs(field_lap, 4096, 79)
+    start, ests, resampled = state, [], 0
+    for rel, xy, th, ranges, valid, u in steps:
+        moved = pf.predict_with_noise(state, rel, xy, th, 0.05, 0.03)
+        assert torch.equal(moved.poses, pf._predicted(state.poses, rel, xy, th, 0.05, 0.03))
+        assert moved.log_w is state.log_w
+        weighted = pf.update_field(moved, field, grid, model, ranges, valid)
+        assert torch.equal(weighted.log_w, pf._field_weights(field, grid.spec, model, moved.poses,
+                                                             moved.log_w, ranges, valid))
+        assert weighted.poses is moved.poses
+        state = pf.maybe_resample_at(weighted, u)
+        want = pf._maybe_resampled(weighted.poses, weighted.log_w, u)
+        assert torch.equal(state.poses, want[0]) and torch.equal(state.log_w, want[1])
+        ests.append(pf.estimate(state))
+        assert torch.equal(ests[-1], pf._estimated(state.poses, state.log_w, pf.TOP_K))
+        resampled += bool(torch.all(state.log_w == state.log_w[0]))
+    assert 0 < resampled < len(steps)               # both branches of the select ran
+    assert _graph_counts() == (4, 4 * (len(steps) - 1))
+    eager = start
+    for k, step in enumerate(steps):
+        eager, est = _pf_tick(frozen, field_lap, eager, step)
+        assert torch.equal(est, ests[k]), k
+
+
+def test_pf_graph_outputs_never_change_afterwards(field_lap, pf_graphs):
+    """A state and an estimate handed back by replays are the caller's: 10
+    more ticks leave them as they were."""
+    state, steps = _pf_inputs(field_lap, 4096, 16)
+    for step in steps[:5]:
+        state, est = _pf_tick(pf_graphs, field_lap, state, step)
+    kept = (state.poses.clone(), state.log_w.clone(), est.clone())
+    held = (state.poses, state.log_w, est)
+    later = state
+    for step in steps[5:15]:
+        later, _ = _pf_tick(pf_graphs, field_lap, later, step)
+    torch.cuda.synchronize()
+    assert _graph_counts() == (4, 4 * 14)
+    assert all(torch.equal(a, b) for a, b in zip(held, kept))
+
+
+def test_pf_graphs_capture_again_for_a_new_cloud_or_field(field_lap, pf_graphs):
+    """Another particle count captures each phase once more after its
+    warm-up, and so does a second field tensor for the update; a new lap's
+    tensors of the same shapes replay; the cache keeps at most its bound
+    a phase over many cloud sizes."""
+    pf = pf_graphs
+    model, _, _, grid, field = field_lap
+    for n, captures in ((4096, 4), (1024, 8)):
+        for lap in range(2):                        # the second lap: new draws, same shapes
+            state, steps = _pf_inputs(field_lap, n, 3, seed=lap)
+            for step in steps:
+                state, _ = _pf_tick(pf, field_lap, state, step)
+        assert _graph_counts()[0] == captures
+    other = field.clone()
+    rel, xy, th, ranges, valid, u = steps[0]
+    for _ in range(3):
+        pf.update_field(state, other, grid, model, ranges, valid)
+    assert _graph_counts()[0] == 9
+    for n in (64, 128, 256, 512, 2048, 3000):
+        state, steps = _pf_inputs(field_lap, n, 2)
+        for step in steps:
+            state, _ = _pf_tick(pf, field_lap, state, step)
+    held = pf.GRAPHS._graphs
+    assert set(held) == {pf._predicted, pf._field_weights, pf._maybe_resampled, pf._estimated}
+    assert all(len(keys) <= cuda_graphs.PER_FUNCTION for keys in held.values())
+    pf.GRAPHS.clear()
+    assert pf.GRAPHS._graphs == {}
+
+
+def test_pf_float_uniform_and_grad_run_eagerly(field_lap, pf_graphs):
+    """A Python-float ``u`` and poses that require grad take the eager
+    path: nothing captured or replayed, the results the eager bodies'."""
+    pf = pf_graphs
+    state, steps = _pf_inputs(field_lap, 4096, 4)
+    for step in steps:
+        state, _ = _pf_tick(pf, field_lap, state, step)
+    before = _graph_counts()
+    for u in (0.25, 0.75):
+        got = pf.maybe_resample_at(state, u)
+        want = pf._maybe_resampled(state.poses, state.log_w, u)
+        assert torch.equal(got.poses, want[0]) and torch.equal(got.log_w, want[1])
+    graded = pf.ParticleState(state.poses.clone().requires_grad_(), state.log_w)
+    est = pf.estimate(graded)
+    assert est.requires_grad
+    assert torch.equal(est.detach(), pf._estimated(state.poses, state.log_w, pf.TOP_K))
+    assert _graph_counts() == before
+
+
+def test_pf_graphs_from_two_threads_are_each_calls_own(field_lap, pf_graphs):
+    """Two host threads on the one default stream, as the online session's
+    robot loop (``update_field`` and ``estimate`` each tick) and its pose
+    server (``estimate``) run them: every result a replay hands back
+    equals its eager body's on that call's own inputs, bit for bit."""
+    import threading
+
+    pf = pf_graphs
+    model, _, _, grid, field = field_lap
+    state, steps = _pf_inputs(field_lap, 4096, 24)
+    states = []
+    for step in steps:
+        state, _ = _pf_tick(pf, field_lap, state, step)
+        states.append((state, step))
+    want_w = [pf._field_weights(field, grid.spec, model, s.poses, s.log_w, st[3], st[4])
+              for s, st in states]
+    want_e = [pf._estimated(s.poses, s.log_w, pf.TOP_K) for s, _ in states]
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    wrong, start = [], threading.Barrier(2)
+
+    def robot():
+        start.wait()
+        for r in range(8):
+            for k, (s, st) in enumerate(states):
+                w = pf.update_field(s, field, grid, model, st[3], st[4]).log_w
+                e = pf.estimate(s)
+                if not (torch.equal(w, want_w[k]) and torch.equal(e, want_e[k])):
+                    wrong.append(("robot", r, k))
+
+    def server():
+        start.wait()
+        for r in range(16):
+            for k in reversed(range(len(states))):
+                if not torch.equal(pf.estimate(states[k][0]), want_e[k]):
+                    wrong.append(("server", r, k))
+
+    try:
+        threads = [threading.Thread(target=robot), threading.Thread(target=server)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(before)
+    assert wrong == []
+    assert _graph_counts()[0] == 4
+
+
+def test_pf_graph_kernels_are_credited_to_the_phase_spans(field_lap, pf_graphs, monkeypatch):
+    """Under a ``torch.profiler`` window the graphs' kernels are device
+    operations of the window, and ``benchmark/harness.summarize`` credits
+    each ``pf.*`` range with their device time: every operation of the
+    eager phases is counted, plus at most one a tensor copied in or
+    cloned out (13 + 5 a tick); the ranges' device time is the eager
+    phases' to within a factor of two (the same kernels; a static buffer's
+    alignment may pick a wider vector load)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import harness
+
+    pf = pf_graphs
+    state, steps = _pf_inputs(field_lap, 4096, 12)
+    for step in steps[:3]:
+        state, _ = _pf_tick(pf, field_lap, state, step)
+
+    def window(ticks, state):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for step in ticks:
+                state, est = _pf_tick(pf, field_lap, state, step)
+                est.cpu()
+            torch.cuda.synchronize()
+        return state, harness.summarize(prof, 1.0)
+
+    state, graphed = window(steps[3:7], state)
+    assert _graph_counts() == (4, 4 * 6)
+    with monkeypatch.context() as m:
+        m.setattr(pf, "GRAPHS", lambda fn, *args: fn(*args))
+        state, eager = window(steps[7:11], state)
+    assert eager.n_ops <= graphed.n_ops <= eager.n_ops + 4 * 18, (graphed.n_ops, eager.n_ops)
+    names = ("pf.predict", "pf.update", "pf.resample", "pf.estimate")
+    for name in names:
+        calls, seconds = graphed.range_device_s[name]
+        assert calls == 4 and seconds > 0, (name, graphed.range_device_s[name])
+    total = [sum(s.range_device_s[n][1] for n in names) for s in (graphed, eager)]
+    assert 0.5 * total[1] < total[0] < 2.0 * total[1], total
 
 
 def test_icp_matchers_on_the_card_against_the_cpu(cuda):

@@ -3,8 +3,8 @@ registry records nothing and enters no ``record_function``; under
 ``enable()`` it records without a range; under a ``torch.profiler``
 window it records and each span is a range of the profiler's timeline.
 Held on ``odometry_keyframe`` (its phases and pass 2's padding counters),
-the particle filter's four phases and the correlative search's ``h2``
-range, on the CPU."""
+the particle filter's four phases and the names of their graph counters,
+and the correlative search's ``h2`` range, on the CPU."""
 
 import math
 import os
@@ -36,6 +36,7 @@ import synthetic_log  # noqa: E402
 ODOMETRY_SPANS = ("odometry.keyframe", "odometry.chain", "odometry.flags_fetch",
                   "odometry.rematch", "odometry.rematch_fetch", "odometry.rechain")
 PF_SPANS = ("pf.predict", "pf.update", "pf.resample", "pf.estimate")
+PF_GRAPH_COUNTERS = ("pf.graph_captures", "pf.graph_replays")
 
 
 def short_log(n=40, whip_at=20, seed=40):
@@ -224,6 +225,16 @@ def test_each_pf_span_counts_once_a_call(registry, log):
     state = pf.init_from_noise(torch.zeros(3), torch.zeros(16, 2), torch.zeros(16))
     pf.predict(state, torch.zeros(3), torch.Generator().manual_seed(0))
     assert registry.report()["pf.predict"]["count"] == 1
+
+
+def test_pf_graph_counters_keep_their_names_and_stay_off_the_cpu(registry, log):
+    """The phases' graph counters (captures, replays) have fixed names;
+    on CPU tensors no phase replays a graph, so neither counts."""
+    assert pf.GRAPHS.counters == PF_GRAPH_COUNTERS
+    registry.enable()
+    pf_tick(log, ticks=3)
+    assert not set(registry.counts()) & set(PF_GRAPH_COUNTERS)
+    assert registry.report()["pf.update"]["count"] == 3
 
 
 def test_h2_range_appears_under_a_window(registry, log):
