@@ -13,8 +13,9 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
 - ``localize``: build a map from the first half of a log (at its ground
   truth) and track the second half with the particle filter: position
   error against the ground truth. ``--model`` picks the observation
-  model: ``field`` (likelihood field, the default) or ``beam`` (the
-  ray-cast beam model).
+  model: ``field`` (likelihood field, the default), ``beam`` (the
+  ray-cast beam model) or ``icp`` (each particle's scan ray-cast from
+  the map and the real scan aligned onto it by point ICP).
 - ``eval``: ATE / RPE of a trajectory file against a log's ground truth,
   as one JSON line.
 - ``view``: replay a log along a trajectory (``--traj``, default its
@@ -218,8 +219,10 @@ def cmd_localize(args) -> LocalizeRun:
     field = likelihood_field(grid) if args.model == "field" else None
 
     def update(state, ranges, valid):
-        if field is None:
+        if args.model == "beam":
             return pf.update_beam(state, grid, model, ranges, valid)
+        if args.model == "icp":
+            return pf.update_raycast_icp(state, grid, model, ranges, valid)
         return pf.update_field(state, field, grid, model, ranges, valid)
 
     generator = torch.Generator(device=dev)
@@ -424,8 +427,9 @@ def main(argv=None):
     sp.add_argument("--particles", type=int, default=2048)
     sp.add_argument("--steps", type=int, default=200)
     sp.add_argument("--resolution", type=float, default=0.05)
-    sp.add_argument("--model", choices=("field", "beam"), default="field",
-                    help="observation model: likelihood field or ray-cast beam model")
+    sp.add_argument("--model", choices=("field", "beam", "icp"), default="field",
+                    help="observation model: likelihood field, ray-cast beam model, or "
+                         "ray-cast + ICP")
     sp.set_defaults(fn=cmd_localize)
 
     sp = sub.add_parser("view", help="live viewer replay of a log (GIF/window)")

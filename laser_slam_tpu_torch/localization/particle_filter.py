@@ -2,14 +2,17 @@
 ``localization/particle_filter.py``).
 
 The whole cloud (thousands of particles) evaluates in one batched call
-using any of three observation models:
+using any of four observation models:
 
 - ``field``: likelihood-field endpoint model (one gather per beam, the
   fastest),
 - ``beam``: ray-cast Gaussian beam model,
 - ``icp``: per-particle trimmed point-ICP refinement against the map
   cloud with goodness weights and pose nudging (the particle is moved to
-  the ICP-corrected pose).
+  the ICP-corrected pose),
+- ray-cast + ICP (:func:`update_raycast_icp`): each particle's expected
+  scan is ray-cast from the map, and the real scan is aligned onto it by
+  the same point ICP, with the same goodness weights and nudge.
 
 Resampling is systematic, triggered below Neff < 0.5·P. Global
 relocalization scores a large uniform pose batch in one shot.
@@ -43,15 +46,16 @@ from typing import NamedTuple
 import torch
 
 from ..core import se2
-from ..core.scan import LaserModel
+from ..core.scan import LaserModel, Scan
 from ..mapping.occupancy import OccupancyGrid
-from ..ops.icp_points import match_icp_points
+from ..ops.icp_points import PointIcpResult, match_icp_points, scan_to_points
 from ..utils.cuda_graphs import GraphCache
 from ..utils.profiling import profiler, trace
 from .raycast import (
     SIMULATE_BYTES_PER_SAMPLE,
     beam_likelihood,
     endpoint_likelihood,
+    simulate_scan,
 )
 
 Tensor = torch.Tensor
@@ -68,14 +72,18 @@ and what it binds; counters ``pf.graph_captures`` and
 ``pf.graph_replays``. A test that monkeypatches a callee of a phase on
 CUDA tensors clears it."""
 
-# Device memory one chunk of particles may hold in ``update_beam`` and
-# ``update_icp``, whose intermediates grow with particles × beams ×
-# (range samples | map points).
+# Device memory one chunk of particles may hold in ``update_beam``,
+# ``update_icp`` and ``update_raycast_icp``, whose intermediates grow with
+# particles × beams × (range samples | map points | simulated points).
 CHUNK_BYTES = 2 << 30
 # Bytes per (particle, scan point, map point) in ``match_icp_points``: the
 # squared-distance matrix, its masked copy for the second-nearest search
 # and the comparison masks, float32 and bool.
 ICP_BYTES_PER_PAIR = 4 + 4 + 4 + 2
+# The ICP of the particle filter's ICP models: fixed iterations from a
+# 0.6 m correspondence gate.
+PF_ICP_ITERS = 10
+PF_ICP_MAX_CORR = 0.6
 
 
 class ParticleState(NamedTuple):
@@ -266,13 +274,86 @@ def update_icp(
         res.append(match_icp_points(
             map_pts.expand(b, m, 2), map_valid.expand(b, m),
             scan_pts.expand(b, n, 2), scan_valid.expand(b, n), p,
-            iters=10, max_corr=0.6,
+            iters=PF_ICP_ITERS, max_corr=PF_ICP_MAX_CORR,
         ))
+    return _icp_reweight(state, res, nudge)
+
+
+def _icp_reweight(state: ParticleState, res: list[PointIcpResult], nudge: bool) -> ParticleState:
+    """The ICP models' weights and nudge from the chunks' matches ``res``
+    in the cloud's order: the likelihood is the goodness, ``1e-6`` where
+    the match failed; with ``nudge`` a particle whose match held moves to
+    its corrected pose."""
     fail = torch.cat([r.fail for r in res])
     lik = torch.where(fail, 1e-6, torch.cat([r.goodness for r in res]))
     moved = torch.cat([r.pose for r in res])
     poses = state.poses if not nudge else torch.where(fail[:, None], state.poses, moved)
     return _reweight(state, lik, poses)
+
+
+def update_raycast_icp(
+    state: ParticleState,
+    grid: OccupancyGrid,
+    model: LaserModel,
+    ranges: Tensor,
+    valid: Tensor,
+    nudge: bool = True,
+    chunk: int | None = None,
+) -> ParticleState:
+    """Ray-cast + ICP update: each particle's expected scan is simulated
+    from the map (:func:`simulate_scan`), its hits below ``max_range``
+    become world points, and the observed scan ``[N]`` is aligned onto
+    them by :func:`match_icp_points` from the particle's pose (10
+    iterations from a 0.6 m gate, as :func:`update_icp`). The weight is
+    the match's goodness, ``1e-6`` where it failed; with ``nudge`` the
+    particle moves to the corrected pose. The observed points are the
+    beams that ``valid`` keeps and that lie inside the sensor's range
+    (:func:`scan_to_points`).
+
+    The march takes the whole cloud in one launch on CUDA tensors and, on
+    the CPU, chunks of particles whose ``[P, N, S]`` ladder fits
+    ``CHUNK_BYTES``. The search holds ``[P, N, N]``: the cloud goes
+    through it in ``chunk`` particles if given, else in the fewest chunks
+    of equal size that fit ``CHUNK_BYTES`` (4 of 1024 at 4096 particles
+    and 361 beams).
+
+    Spans: ``pf.update`` around the whole update, ``pf.raycast`` around
+    the march, ``pf.icp`` around the chunk loop of the search (where the
+    ``h1_nearest_two`` ranges lie). Counters, host integers:
+    ``pf.raycast_rays`` adds ``P · N`` and ``pf.raycast_chunks`` the
+    march's chunks, as in :func:`update_beam`; ``pf.icp_pairs`` adds
+    ``P · N · N · iterations``, ``pf.icp_chunks`` the search's chunks."""
+    with trace("pf.update"):
+        n, p = model.n_beams, state.n
+        n_samples = int(model.max_range / grid.spec.resolution)
+        march = p if state.poses.is_cuda else _chunk(
+            p, n * n_samples * SIMULATE_BYTES_PER_SAMPLE, None)
+        step = _chunk(p, n * n * ICP_BYTES_PER_PAIR, chunk)
+        if chunk is None:           # the fewest chunks that fit, of equal size
+            step = -(-p // -(-p // step))
+        profiler.count("pf.raycast_rays", p * n)
+        profiler.count("pf.raycast_chunks", -(-p // march))
+        profiler.count("pf.icp_pairs", p * n * n * PF_ICP_ITERS)
+        profiler.count("pf.icp_chunks", -(-p // step))
+        with trace("pf.raycast"):
+            sim = torch.cat([simulate_scan(grid, model, state.poses[i:i + march])
+                             for i in range(0, p, march)])
+        fi = model.bearings(ranges.dtype, ranges.device)
+        ang = state.poses[:, 2:3] + fi
+        sim_pts = torch.stack([state.poses[:, 0:1] + sim * torch.cos(ang),
+                               state.poses[:, 1:2] + sim * torch.sin(ang)], dim=-1)
+        sim_ok = sim < model.max_range
+        scan_pts, scan_ok = scan_to_points(model, Scan(ranges, ~valid, None))
+        res = []
+        with trace("pf.icp"):
+            for i in range(0, p, step):
+                b = min(step, p - i)
+                res.append(match_icp_points(
+                    sim_pts[i:i + b], sim_ok[i:i + b], scan_pts.expand(b, n, 2),
+                    scan_ok.expand(b, n), state.poses[i:i + b],
+                    iters=PF_ICP_ITERS, max_corr=PF_ICP_MAX_CORR,
+                ))
+        return _icp_reweight(state, res, nudge)
 
 
 def neff(state: ParticleState) -> Tensor:

@@ -80,13 +80,13 @@ class SlamV1:
 
     ``work_mode``: ``"mapping"`` (online SLAM) or ``"localization"``
     (particle filter against ``localization_grid``, weighted by the
-    ``observation_model``: ``"field"``, the likelihood field, or
-    ``"beam"``, the ray-cast beam model; global relocalization on the
-    first scan scores on the field either way). Everything runs on
-    ``device``: ``cuda`` unless the caller names another, and then
-    construction raises where there is no CUDA device. The particle
-    filter draws from a ``torch.Generator`` on that device, seeded with
-    ``seed``.
+    ``observation_model``: ``"field"``, the likelihood field,
+    ``"beam"``, the ray-cast beam model, or ``"icp"``, ray-cast + ICP;
+    global relocalization on the first scan scores on the field either
+    way). Everything runs on ``device``: ``cuda`` unless the caller names
+    another, and then construction raises where there is no CUDA device.
+    The particle filter draws from a ``torch.Generator`` on that device,
+    seeded with ``seed``.
     """
 
     model: LaserModel
@@ -94,7 +94,7 @@ class SlamV1:
     work_mode: str = "mapping"
     cfg: SlamConfig = SlamConfig()
     localization_grid: OccupancyGrid | None = None
-    observation_model: str = "field"   # localization: "field" or "beam"
+    observation_model: str = "field"   # localization: "field", "beam" or "icp"
     n_particles: int = 1024
     local_map_radius: float = 5.0
     seed: int = 0
@@ -128,7 +128,7 @@ class SlamV1:
         elif self.work_mode == "localization":
             if self.localization_grid is None:
                 raise ValueError("localization mode needs localization_grid")
-            if self.observation_model not in ("field", "beam"):
+            if self.observation_model not in ("field", "beam", "icp"):
                 raise ValueError(f"unknown observation_model {self.observation_model!r}")
             grid = self.localization_grid
             self.localization_grid = OccupancyGrid(grid.log_odds.to(self.device), grid.spec)
@@ -267,6 +267,9 @@ class SlamV1:
             self._pending_rel = np.zeros(3, np.float32)
         if self.observation_model == "beam":
             self._pf_state = pf.update_beam(
+                self._pf_state, self.localization_grid, self.model, scan.ranges, valid)
+        elif self.observation_model == "icp":
+            self._pf_state = pf.update_raycast_icp(
                 self._pf_state, self.localization_grid, self.model, scan.ranges, valid)
         else:
             self._pf_state = pf.update_field(

@@ -3,7 +3,9 @@ card: the batch entry against ``psm.match_psm``, its error-index epilogue
 against ``psm.error_index``, the keyframe-chain entry against the step loop
 of ``odometry.odometry_keyframe``. The sparse correlative score-volume
 kernel against the grouped conv of its plain version. The beam model's
-ray-march kernel against the dense ladder of its plain version. Then the
+ray-march kernel against the dense ladder of its plain version, and the
+ray-cast + ICP update on the card against the CPU and, at the cell's
+shape, under a trace. Then the
 loop-closure backend on the card: the chunk verifier against the same call
 on the CPU, and ``cli slam`` twice on a short log. Then the later paths on the card: the online
 session, localization, the ICP matchers, the loopback, the robot path,
@@ -675,6 +677,77 @@ def test_ray_march_wrapper_rejects_what_it_does_not_take(cuda):
     torch.cuda.synchronize()
     assert raycast_kernel.ray_march.launches == before + 1
     assert out.shape == (2, 7) and (out == 5.0).all()
+
+
+def test_update_raycast_icp_on_the_card_against_the_cpu(cuda):
+    """The ray-cast + ICP update of 64 poses around one of the room's on the
+    card (one march launch) and on the CPU (the ladder). A ray sample on a
+    cell edge may read the neighbouring cell on the other device (last bits
+    of cos/sin), which moves a simulated point by a cell, and ``atan2``'s
+    last bit differs between the devices: a particle's match may settle
+    apart and count a point more or less. So the fail flags must agree,
+    the poses at the median within 1 mm and at the worst within 2 cm (a
+    cell), and at most a tenth of the log-weights may move by over 1e-3."""
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    grid, scans, _ = _room_on(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    true = torch.tensor([-0.7, 0.9, -0.4], device=cuda)      # the room's pose 2
+    poses = true + torch.randn(
+        64, 3, generator=g, device=cuda) * torch.tensor([0.05, 0.05, 0.03], device=cuda)
+    state = pf.ParticleState(poses, torch.full((64,), -np.log(64.0), device=cuda))
+    ranges, valid = scans.ranges[2], ~scans.bad[2]
+    before = raycast_kernel.ray_march.launches
+    card = pf.update_raycast_icp(state, grid, ROOM_MODEL, ranges, valid)
+    torch.cuda.synchronize()
+    assert raycast_kernel.ray_march.launches == before + 1
+    host = pf.update_raycast_icp(
+        pf.ParticleState(poses.cpu(), state.log_w.cpu()),
+        type(grid)(grid.log_odds.cpu(), grid.spec), ROOM_MODEL, ranges.cpu(), valid.cpu())
+    assert raycast_kernel.ray_march.launches == before + 1
+    d = np.hypot(*(card.poses.cpu().numpy()[:, :2] - host.poses.numpy()[:, :2]).T)
+    assert np.median(d) < 1e-3 and d.max() < 2e-2, (np.median(d), d.max())
+    w = np.abs(card.log_w.cpu().numpy() - host.log_w.numpy())
+    assert (w > 1e-3).mean() <= 0.1, np.sort(w)[-8:]
+    # The nudge pulls the cloud towards the pose the scan was taken from.
+    spread = [float(torch.hypot(*(p[:, :2] - true[:2]).T).mean()) for p in (poses, card.poses)]
+    assert spread[1] < spread[0], spread
+
+
+def test_update_raycast_icp_at_the_cell_shape_credits_pf_icp(beam_cell):
+    """One ray-cast + ICP update at the cell's shape (4096 poses, 361 beams,
+    a 2 cm map): one march launch, the search in 4 chunks of 1024 and
+    4096 · 361² · 10 pairs counted; under a ``torch.profiler`` window
+    ``benchmark/harness.summarize`` credits ``pf.icp`` with the search's
+    kernels, most of the update's device time, and ``pf.raycast`` with the
+    march."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import harness
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    grid, model, cloud, ranges, valid = beam_cell
+    state = pf.ParticleState(cloud, torch.full((cloud.shape[0],), -np.log(cloud.shape[0]),
+                                               device=cloud.device))
+    warm = pf.update_raycast_icp(state, grid, model, ranges, valid)
+    profiler.reset()
+    before = raycast_kernel.ray_march.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = pf.update_raycast_icp(state, grid, model, ranges, valid)
+        torch.cuda.synchronize()
+    counts = profiler.counts()
+    profiler.reset()
+    assert raycast_kernel.ray_march.launches == before + 1
+    assert torch.equal(got.log_w, warm.log_w) and torch.equal(got.poses, warm.poses)
+    assert counts["pf.icp_pairs"] == 4096 * 361 * 361 * 10 and counts["pf.icp_chunks"] == 4
+    assert counts["pf.raycast_rays"] == 4096 * 361 and counts["pf.raycast_chunks"] == 1
+    ranges_s = harness.summarize(prof, 1.0).range_device_s
+    for name in ("pf.update", "pf.raycast", "pf.icp", "h1_nearest_two"):
+        assert ranges_s[name][1] > 0, (name, ranges_s.get(name))
+    assert ranges_s["pf.icp"][1] > 0.6 * ranges_s["pf.update"][1], ranges_s
+    assert ranges_s["h1_nearest_two"][1] <= ranges_s["pf.icp"][1], ranges_s
+    assert int((~torch.isfinite(got.log_w)).sum()) == 0
 
 
 def test_systematic_resample_on_the_card_against_the_cpu(cuda):

@@ -118,7 +118,7 @@ def test_cli_localize_field_is_unchanged(small_log):
     np.testing.assert_array_equal(default.errors, field.errors)
     np.testing.assert_array_equal(field.errors, _field_localize_as_before(small_log, 256, 15, 0.05))
     with pytest.raises(SystemExit):
-        tcli.main(["localize", small_log, "--model", "icp", *args])
+        tcli.main(["localize", small_log, "--model", "sonar", *args])
 
 
 def room_ranges(poses, seed=0):
@@ -251,4 +251,4 @@ def test_facade_localization_takes_the_beam_model(monkeypatch):
     np.testing.assert_array_equal(default, drive(observation_model="field"))
     with pytest.raises(ValueError, match="observation_model"):
         tfacade.SlamV1(ROOM_MODEL, work_mode="localization", localization_grid=grid,
-                       device="cpu", observation_model="icp").start()
+                       device="cpu", observation_model="sonar").start()

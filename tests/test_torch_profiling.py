@@ -4,7 +4,8 @@ registry records nothing and enters no ``record_function``; under
 window it records and each span is a range of the profiler's timeline.
 Held on ``odometry_keyframe`` (its phases and pass 2's padding counters),
 the particle filter's four phases and the names of their graph counters,
-and the correlative search's ``h2`` range, on the CPU."""
+the ray-cast + ICP update's spans and counters, and the correlative
+search's ``h2`` range, on the CPU."""
 
 import math
 import os
@@ -37,6 +38,9 @@ ODOMETRY_SPANS = ("odometry.keyframe", "odometry.chain", "odometry.flags_fetch",
                   "odometry.rematch", "odometry.rematch_fetch", "odometry.rechain")
 PF_SPANS = ("pf.predict", "pf.update", "pf.resample", "pf.estimate")
 PF_GRAPH_COUNTERS = ("pf.graph_captures", "pf.graph_replays")
+# ``update_raycast_icp``: the update, its march and its ICP chunk loop.
+PF_ICP_SPANS = ("pf.update", "pf.raycast", "pf.icp")
+PF_ICP_COUNTERS = ("pf.icp_pairs", "pf.icp_chunks", "pf.raycast_rays", "pf.raycast_chunks")
 
 
 def short_log(n=40, whip_at=20, seed=40):
@@ -235,6 +239,42 @@ def test_pf_graph_counters_keep_their_names_and_stay_off_the_cpu(registry, log):
     pf_tick(log, ticks=3)
     assert not set(registry.counts()) & set(PF_GRAPH_COUNTERS)
     assert registry.report()["pf.update"]["count"] == 3
+
+
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_raycast_icp_spans_nest_and_counters_count(registry, log, chunk):
+    """Off, ``update_raycast_icp`` records nothing; under a window each of
+    its spans is one range, ``pf.raycast`` and ``pf.icp`` inside
+    ``pf.update`` and the ten ``h1_nearest_two`` searches inside
+    ``pf.icp``; its counters add ``P · N`` rays in one march chunk and
+    ``P · N² · 10`` pairs in ``⌈P / chunk⌉`` search chunks; the result is
+    the same either way."""
+    poses, _, scans = log
+    gt = torch.from_numpy(poses.astype(np.float32))
+    grid = integrate_scans(empty_grid(spec_for_trajectory(poses, 8.0, 0.1)), LMS211, scans, gt)
+    g = torch.Generator().manual_seed(5)
+    state = pf.init_from_noise(gt[3], torch.randn(12, 2, generator=g), torch.randn(12, generator=g),
+                               0.05, 0.03)
+    args = (grid, LMS211, scans.ranges[3], ~scans.bad[3])
+    off = pf.update_raycast_icp(state, *args, chunk=chunk)
+    assert registry.report() == {} and registry.counts() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = pf.update_raycast_icp(state, *args, chunk=chunk)
+    assert torch.equal(on.log_w, off.log_w) and torch.equal(on.poses, off.poses)
+    rep = registry.report()
+    assert {n: rep[n]["count"] for n in PF_ICP_SPANS} == dict.fromkeys(PF_ICP_SPANS, 1)
+    n = LMS211.n_beams
+    assert registry.counts() == dict(zip(PF_ICP_COUNTERS, (
+        12 * n * n * 10, 1 if chunk is None else 3, 12 * n, 1)))
+    events = {}
+    for e in prof.events():
+        events.setdefault(e.name, []).append(e.time_range)
+    (update,), (march,), (search,) = (events[name] for name in PF_ICP_SPANS)
+    assert len(events["h1_nearest_two"]) == 10 * (1 if chunk is None else 3)
+    for inner, outer in [(march, update), (search, update)] + [
+            (r, search) for r in events["h1_nearest_two"]]:
+        assert outer.start <= inner.start and inner.end <= outer.end
+    assert march.end <= search.start
 
 
 def test_h2_range_appears_under_a_window(registry, log):
