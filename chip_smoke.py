@@ -65,7 +65,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
    ray-march launch on the card); the card's tick against the same
    functions on the CPU with the same draws; the beam model's ray-march
    kernel at one tick of the beam-model cell's shape against the dense
-   ladder, bit for bit, both timed beside the least time;
+   ladder, bit for bit, both timed beside the least time; at the end, the
+   point-ICP nearest-two search kernel at one iteration of the ray-cast +
+   ICP cell's shape against the plain ``[b, N, N]`` block, bit for bit,
+   both timed beside the least time, with its launches on each main path
+   (``cli odometry``'s pass 2 polish, 15 a chunk; ``[slam]``, ``[online]``,
+   the ``[tcp]`` client, ``[robot]``), one a search of CUDA float32 clouds
+   and none of them on the plain block; pass 2's polish at 181 and 361
+   beams is held bit for bit to the plain block in ``[correlative]``;
 8. the distributed topology (``[tcp]``): ``cli serve`` on ``cuda`` in a
    process of its own and ``cli client`` on ``cuda`` streaming the whole
    log to it over localhost TCP; the client's K1 two-pair launches, the
@@ -487,6 +494,52 @@ def check_volume_launches(calls, label) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def search_calls():
+    """Counts the point-ICP correspondence searches
+    (``icp_points._nearest_two``) while open, from any thread, and zeroes
+    the nearest-two kernel's launch count on entry. Yields ``[kernel,
+    plain]``: the searches of CUDA float32 clouds with points, each of
+    which must launch ``nearest_two_kernel`` once (held by
+    :func:`check_search_launches`), and the others, which take the plain
+    block."""
+    import threading
+
+    from laser_slam_tpu_torch.ops import icp_points
+    from laser_slam_tpu_torch.ops.cuda import icp_nearest_kernel as NK
+
+    search, calls, lock = icp_points._nearest_two, [0, 0], threading.Lock()
+
+    def counting(q, ref_pts, ref_valid):
+        kernel = icp_points.searches_on_kernel(q, ref_pts) and q.shape[0] * q.shape[1] > 0
+        with lock:
+            calls[0 if kernel else 1] += 1
+        return search(q, ref_pts, ref_valid)
+
+    icp_points._nearest_two = counting
+    NK.nearest_two.launches = 0
+    try:
+        yield calls
+    finally:
+        icp_points._nearest_two = search
+
+
+def check_search_launches(calls, label, expect=None) -> int:
+    """Holds the nearest-two kernel's launches since :func:`search_calls`
+    opened to the searches it counted on the kernel's path (and to
+    ``expect``, where the path's iterations are known): at least one, one
+    a search, none of the path's searches on the plain block. Returns
+    them."""
+    from laser_slam_tpu_torch.ops.cuda import icp_nearest_kernel as NK
+
+    launches = NK.nearest_two.launches
+    if launches != calls[0] or launches < 1 or calls[1] or expect not in (None, launches):
+        raise AssertionError(f"{label}: {calls[0]} searches of CUDA float32 clouds (expected "
+                             f"{expect}) launched the nearest-two kernel {launches} times; "
+                             f"{calls[1]} searches took the plain block")
+    return launches
+
+
 def volume_parity(a, label, exact=True):
     """The sparse kernel against its plain version (the count raster and
     the grouped conv) on the arguments ``a`` of one
@@ -525,8 +578,9 @@ def correlative_phase(log, scans, synth, smi):
     version at pass 2's shapes (128 consecutive pairs, 72 rotations across
     ±π, ``match_correlative``'s ±1.2 m window on the 256 × 256 grid) at 181
     and 361 beams, bit for bit; the kernel's time, the plain version's and
-    the conv's alone, and the least time by operations and bytes. Returns
-    them by beam count."""
+    the conv's alone, and the least time by operations and bytes; then
+    pass 2's ICP polish at the same rows (:func:`polish_parity`). Returns
+    the volume's and the polish search's entries, each by beam count."""
     from laser_slam_tpu_torch.core import scan as S
     from laser_slam_tpu_torch.ops import correlative, icp_points
     from laser_slam_tpu_torch.ops import preprocess as pp
@@ -539,7 +593,7 @@ def correlative_phase(log, scans, synth, smi):
     thetas = correlative._linspace(-np.pi, np.pi, k_rot, torch.float32, dev).expand(rows, k_rot)
     base = torch.zeros(rows, 2, device=dev)
     rng = np.random.default_rng(13)
-    out = {}
+    out, search = {}, {}
     for model in (log.model, S.LMS511):
         if model.n_beams == log.model.n_beams:
             a, b = pairs(S.Scan(*(x[:rows + 1] for x in scans)), S)
@@ -581,7 +635,48 @@ def correlative_phase(log, scans, synth, smi):
                              f"{bound:.4f} ms by {by} ({madds:.3g} multiply-adds); {smi}")
         out[model.n_beams] = {"ms": ms, "plain_ms": plain_ms, "library_ms": conv_ms,
                               "bound_ms": bound, "bound_by": by}
-    return out
+        search[model.n_beams] = polish_parity(model, a, pts, ok, smi)
+    return out, search
+
+
+def polish_parity(model, a, pts, ok, smi) -> dict:
+    """Pass 2's ICP polish on the card (``match_correlative``'s
+    ``match_icp_points``: 15 iterations, the gate from 3 cells) of the
+    rows' points ``pts``/``ok`` onto their reference scans ``a`` from the
+    zero pose, with the nearest-two kernel against the same polish with
+    the plain block in its place, bit for bit; and the first iteration's
+    search alone, kernel against plain block, both timed. Returns the
+    search's entry at this shape."""
+    from laser_slam_tpu_torch.ops import correlative, icp_points
+
+    ref_pts, ref_ok = icp_points.scan_to_points(model, a)
+    init = torch.zeros(pts.shape[0], 3, device=pts.device)
+
+    def polish():
+        return icp_points.match_icp_points(ref_pts, ref_ok, pts, ok, init, iters=15,
+                                           max_corr=3.0 * correlative.GRID_RES)
+
+    kernel_search = icp_points._nearest_two
+    got = polish()
+    icp_points._nearest_two = icp_points._nearest_two_plain
+    try:
+        want = polish()
+    finally:
+        icp_points._nearest_two = kernel_search
+    q = pts.contiguous()
+    search = (icp_points._nearest_two(q, ref_pts, ref_ok),
+              icp_points._nearest_two_plain(q, ref_pts, ref_ok))
+    equal = (all(g is w is None or torch.equal(g, w) for g, w in zip(got, want))
+             and all(torch.equal(g, w) for g, w in zip(*search)))
+    ms = cuda_ms(lambda: icp_points._nearest_two(q, ref_pts, ref_ok), 50)
+    plain_ms = cuda_ms(lambda: icp_points._nearest_two_plain(q, ref_pts, ref_ok), 20)
+    label = f"pass 2's polish, {model.name} ({pts.shape[0]} x {pts.shape[1]} points)"
+    phase("correlative", f"{label}: nearest-two kernel against the plain block, 15 iterations "
+                         f"and one search equal {equal}; one search {ms:.4f} ms, plain block "
+                         f"{plain_ms:.4f} ms; {smi}")
+    if not equal:
+        raise AssertionError(f"{label}: the nearest-two kernel is not the plain search")
+    return {"equal": equal, "ms": ms, "plain_ms": plain_ms}
 
 
 def slam_phase(cli, K, log_path, log, smi):
@@ -1160,6 +1255,59 @@ def march_phase(smi) -> dict:
     if not equal or launches != 1:
         raise AssertionError(f"the ray march is not the ladder (equal {equal}) or did not launch "
                              f"once ({launches})")
+    return entry
+
+
+def nearest_two_phase(smi) -> dict:
+    """The point-ICP nearest-two search kernel at the first iteration of
+    one tick of the ray-cast + ICP cell's shape (``tools/beam_cell.py``'s
+    map and cloud: 4096 particles, each one's 361 simulated points against
+    the 361 observed points): ``j``, ``j2`` and ``nn_ok`` against the plain
+    ``[b, N, N]`` block in chunks of 1024, bit for bit; both timed with
+    CUDA events beside the least time of the search by the benchmark's
+    arithmetic (``benchmark/roofline_icp.py``: 8 operations a pair of a
+    valid observed point and a simulated point). Returns the kernel's JSON
+    entry."""
+    import beam_cell as cell
+    import icp_search_cases as cases
+    from benchmark import roofline, roofline_icp
+    from laser_slam_tpu_torch.ops import icp_points
+    from laser_slam_tpu_torch.ops.cuda import icp_nearest_kernel as NK
+
+    grid, model, cloud, ranges, valid = cell.beam_cell()
+    sim_pts, sim_ok, _, scan_ok, q = cases.cell_clouds(grid, model, cloud, ranges, valid)
+
+    def plain():
+        return [torch.cat(x) for x in zip(*(
+            icp_points._nearest_two_plain(q[i:i + 1024], sim_pts[i:i + 1024], sim_ok[i:i + 1024])
+            for i in range(0, q.shape[0], 1024)))]
+
+    before = NK.nearest_two.launches
+    got = icp_points._nearest_two(q, sim_pts, sim_ok)
+    want = plain()
+    torch.cuda.synchronize()
+    launches = NK.nearest_two.launches - before
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    kernel_ms = cuda_ms(lambda: icp_points._nearest_two(q, sim_pts, sim_ok), 20)
+    plain_ms = cuda_ms(plain, 3)
+    n, points = q.shape[0], int(scan_ok[0].sum())
+    bound_s, bound_by = roofline.least_seconds(
+        n * points * model.n_beams * roofline_icp.OPS_PER_PAIR,
+        n * model.n_beams * 2 * roofline_icp.POINT_BYTES)
+    entry = {
+        "name": "nearest_two_kernel (point-ICP nearest-two search: 4096 particles x 361 "
+                "simulated points x 361 observed points, one ICP iteration)",
+        "route": "cuda", "source": "laser_slam_tpu_torch/csrc/icp_nearest_kernel.cu",
+        "replaces": None, "launches_search_check": launches, "equal": equal,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "library_ms": None, "valid_observed_points": points,
+        "simulated_hits": float(sim_ok.float().mean()),
+    }
+    phase("localize", "nearest-two search at the icp cell's shape " + json.dumps(
+        {**entry, "card": smi}))
+    if not equal or launches != 1:
+        raise AssertionError(f"the nearest-two kernel is not the plain search (equal {equal}) or "
+                             f"did not launch once ({launches})")
     return entry
 
 
@@ -2127,6 +2275,7 @@ def main() -> None:
     from laser_slam_tpu_torch.mapping import occupancy as occ
     from laser_slam_tpu_torch.ops import correlative, odometry, preprocess as pp, psm
     from laser_slam_tpu_torch.ops.cuda import correlative_kernel as V
+    from laser_slam_tpu_torch.ops.cuda import icp_nearest_kernel as NK
     from laser_slam_tpu_torch.ops.cuda import psm_kernel as K
     from laser_slam_tpu_torch.ops.cuda import raycast_kernel as RK
     import synthetic_log as synth
@@ -2141,7 +2290,7 @@ def main() -> None:
                     f"nvidia-smi: {smi}")
 
     # -- 2. build ---------------------------------------------------------
-    for kernel in (K.KERNEL, V.KERNEL, RK.KERNEL):
+    for kernel in (K.KERNEL, V.KERNEL, RK.KERNEL, NK.KERNEL):
         t_build = kernel.build()
         ptxas = " | ".join(l.strip() for l in kernel.build_log.splitlines()
                            if "Used" in l or "spill" in l)
@@ -2189,18 +2338,21 @@ def main() -> None:
                     f"error-index epilogue {batch_index_ms:.4f} ms, plain {batch_plain_ms:.3f} ms "
                     f"({n_pairs / batch_plain_ms * 1e3:.1f} matches/s), bound "
                     f"{batch_bound:.5f} ms by {batch_bound_by}; {smi}")
-    corr = correlative_phase(log, scans, synth, smi)
+    corr, pass2_search = correlative_phase(log, scans, synth, smi)
 
     # -- 4. main paths ----------------------------------------------------
     with tmp:
         traj, png = os.path.join(tmp.name, "traj.txt"), os.path.join(tmp.name, "map.png")
         K.match_psm_fused.launches = K.odometry_chain_fused.launches = 0
         t0 = time.perf_counter()
-        with volume_calls() as calls:
+        with volume_calls() as calls, search_calls() as searches:
             run = cli.main(["odometry", log_path, "--device", "cuda", "--out", traj, "--map", png])
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         odo_volume_launches = check_volume_launches(calls, "cli odometry")
+        # Each pass-2 chunk polishes its re-matches with 15 ICP iterations.
+        odo_search_launches = check_search_launches(
+            searches, "cli odometry", 15 * odo_volume_launches)
         chain_launches = K.odometry_chain_fused.launches
         step_launches = K.match_psm_fused.launches
         chain_iters = K.odometry_chain_fused.last_iters.cpu().numpy()
@@ -2378,19 +2530,26 @@ def main() -> None:
             "ate_rpe_s": t_metrics, "map_s": t_map, "card": smi}))
 
         # -- 5. the SLAM main path -------------------------------------------
-        slam_chain_launches, slam_diag, slam_volume_launches = slam_phase(
-            cli, K, log_path, log, smi)
+        with search_calls() as searches:
+            slam_chain_launches, slam_diag, slam_volume_launches = slam_phase(
+                cli, K, log_path, log, smi)
+        search_launches = {"cli_odometry": odo_search_launches,
+                           "cli_slam": check_search_launches(searches, "[slam]")}
 
         # -- 6. the online path ------------------------------------------------
-        online_launches, online_volume_launches, online_b1_diff = online_phase(
-            K, log, smi, stats, psm, odometry, tmp.name)
+        with search_calls() as searches:
+            online_launches, online_volume_launches, online_b1_diff = online_phase(
+                K, log, smi, stats, psm, odometry, tmp.name)
+        search_launches["online"] = check_search_launches(searches, "[online]")
 
         # -- 7. localization -----------------------------------------------------
         march = localize_phase(cli, log_path, log, smi)
 
         # -- 8.-11. the distributed topology, the other matchers and verifiers --
         V.score_volume_sparse.launches = 0
-        tcp_launches = tcp_phase(cli, K, log_path, log, smi, tmp.name)
+        with search_calls() as searches:
+            tcp_launches = tcp_phase(cli, K, log_path, log, smi, tmp.name)
+        search_launches["tcp_client"] = check_search_launches(searches, "[tcp] client")
         tcp_volume_launches = V.score_volume_sparse.launches
         matchers_phase(log, scans, smi)
         slam_icp_phase(log, smi)
@@ -2398,9 +2557,13 @@ def main() -> None:
 
         # -- 12. the robot application path --------------------------------------
         V.score_volume_sparse.launches = RK.ray_march.launches = 0
-        robot_launches = robot_phase(K, log, smi, tmp.name)
+        with search_calls() as searches:
+            robot_launches = robot_phase(K, log, smi, tmp.name)
+        search_launches["robot"] = check_search_launches(searches, "[robot]")
         robot_volume_launches = V.score_volume_sparse.launches
         robot_march_launches = RK.ray_march.launches
+        phase("localize", "nearest-two kernel launches by path (one a search, no search on the "
+                          "plain block): " + json.dumps(search_launches))
 
         # -- 13. the Kalman and landmark filters ------------------------------------
         fusion_phase(smi)
@@ -2477,6 +2640,9 @@ def main() -> None:
         },
         {**march, "launches": march["launches_localize_cli"] + march["launches_update_beam"]
          + robot_march_launches, "launches_robot": robot_march_launches},
+        {**nearest_two_phase(smi), "launches": sum(search_launches.values()),
+         **{f"launches_{k}": v for k, v in search_launches.items()},
+         **{f"pass2_{k}_{n}": v for n, e in pass2_search.items() for k, v in e.items()}},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -48,6 +48,7 @@ import torch
 from ..core import se2
 from ..core.scan import LaserModel, Scan
 from ..mapping.occupancy import OccupancyGrid
+from ..ops import icp_points
 from ..ops.icp_points import PointIcpResult, match_icp_points, scan_to_points
 from ..utils.cuda_graphs import GraphCache
 from ..utils.profiling import profiler, trace
@@ -76,10 +77,6 @@ CUDA tensors clears it."""
 # ``update_icp`` and ``update_raycast_icp``, whose intermediates grow with
 # particles × beams × (range samples | map points | simulated points).
 CHUNK_BYTES = 2 << 30
-# Bytes per (particle, scan point, map point) in ``match_icp_points``: the
-# squared-distance matrix, its masked copy for the second-nearest search
-# and the comparison masks, float32 and bool.
-ICP_BYTES_PER_PAIR = 4 + 4 + 4 + 2
 # The ICP of the particle filter's ICP models: fixed iterations from a
 # 0.6 m correspondence gate.
 PF_ICP_ITERS = 10
@@ -266,7 +263,7 @@ def update_icp(
     nearest-neighbour search holds ``[P, N, M]``, so the cloud goes
     through it in chunks of particles, as in :func:`update_beam`."""
     n, m = scan_pts.shape[0], map_pts.shape[0]
-    step = _chunk(state.n, n * m * ICP_BYTES_PER_PAIR, chunk)
+    step = _chunk(state.n, n * m * icp_points.BYTES_PER_PAIR, chunk)
     res = []
     for i in range(0, state.n, step):
         p = state.poses[i:i + step]
@@ -312,10 +309,12 @@ def update_raycast_icp(
 
     The march takes the whole cloud in one launch on CUDA tensors and, on
     the CPU, chunks of particles whose ``[P, N, S]`` ladder fits
-    ``CHUNK_BYTES``. The search holds ``[P, N, N]``: the cloud goes
-    through it in ``chunk`` particles if given, else in the fewest chunks
-    of equal size that fit ``CHUNK_BYTES`` (4 of 1024 at 4096 particles
-    and 361 beams).
+    ``CHUNK_BYTES``. The ICP goes through the cloud in ``chunk`` particles
+    if given, else in the fewest chunks of equal size whose intermediates
+    fit ``CHUNK_BYTES`` (``icp_points.bytes_per_row``): on CUDA float32
+    tensors the kernel searches and an iteration holds ``[P, N]`` tensors
+    (one chunk at 4096 particles and 361 beams), elsewhere the plain
+    search holds ``[P, N, N]``.
 
     Spans: ``pf.update`` around the whole update, ``pf.raycast`` around
     the march, ``pf.icp`` around the chunk loop of the search (where the
@@ -328,13 +327,9 @@ def update_raycast_icp(
         n_samples = int(model.max_range / grid.spec.resolution)
         march = p if state.poses.is_cuda else _chunk(
             p, n * n_samples * SIMULATE_BYTES_PER_SAMPLE, None)
-        step = _chunk(p, n * n * ICP_BYTES_PER_PAIR, chunk)
-        if chunk is None:           # the fewest chunks that fit, of equal size
-            step = -(-p // -(-p // step))
         profiler.count("pf.raycast_rays", p * n)
         profiler.count("pf.raycast_chunks", -(-p // march))
         profiler.count("pf.icp_pairs", p * n * n * PF_ICP_ITERS)
-        profiler.count("pf.icp_chunks", -(-p // step))
         with trace("pf.raycast"):
             sim = torch.cat([simulate_scan(grid, model, state.poses[i:i + march])
                              for i in range(0, p, march)])
@@ -344,6 +339,10 @@ def update_raycast_icp(
                                state.poses[:, 1:2] + sim * torch.sin(ang)], dim=-1)
         sim_ok = sim < model.max_range
         scan_pts, scan_ok = scan_to_points(model, Scan(ranges, ~valid, None))
+        step = _chunk(p, icp_points.bytes_per_row(scan_pts, sim_pts), chunk)
+        if chunk is None:           # the fewest chunks that fit, of equal size
+            step = -(-p // -(-p // step))
+        profiler.count("pf.icp_chunks", -(-p // step))
         res = []
         with trace("pf.icp"):
             for i in range(0, p, step):

@@ -1,10 +1,12 @@
 """Free-form point-cloud ICP, batched over pairs (port of
 ``ops/icp_points.py``).
 
-Correspondences come from a masked ``[B, N, M]`` distance matrix
-(nearest and second-nearest reference point, point-to-segment target);
-the gate anneals from ``max_corr`` to ``min_corr``; the worst 10 % of
-matches are trimmed; the update is the closed-form rigid alignment.
+Correspondences come from the nearest and second-nearest reference point
+of each point (point-to-segment target): on CUDA float32 tensors one
+launch of ``csrc/icp_nearest_kernel.cu`` a search, elsewhere a masked
+``[B, N, M]`` distance matrix; the gate anneals from ``max_corr`` to
+``min_corr``; the worst 10 % of matches are trimmed; the update is the
+closed-form rigid alignment.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 from ..core import se2
-from ..utils.profiling import trace
+from ..utils.profiling import profiler, trace
+from .cuda.icp_nearest_kernel import nearest_two
 
 Tensor = torch.Tensor
 
@@ -45,6 +48,65 @@ def _gather_pts(pts: Tensor, idx: Tensor) -> Tensor:
     return torch.gather(pts, 1, idx[..., None].expand(-1, -1, 2))
 
 
+# Bytes per (row, point, reference point) that an iteration's plain search
+# holds: the squared-distance matrix, its masked copy for the
+# second-nearest search and the comparison masks, float32 and bool.
+BYTES_PER_PAIR = 4 + 4 + 4 + 2
+# Bytes per (row, point) of an iteration where the kernel searches and no
+# ``[B, N, M]`` tensor is held: every ``[B, N]`` and ``[B, N, 2]``
+# intermediate of the search and the update (about 290 bytes) counted as
+# if all were live at once, rounded up.
+BYTES_PER_POINT = 320
+
+
+def searches_on_kernel(cur_pts: Tensor, ref_pts: Tensor) -> bool:
+    """Whether :func:`match_icp_points` of these clouds searches with the
+    kernel (CUDA float32: no ``[B, N, M]`` tensor held) or the plain
+    block (:func:`_nearest_two_plain`)."""
+    return cur_pts.is_cuda and cur_pts.dtype == ref_pts.dtype == torch.float32
+
+
+def bytes_per_row(cur_pts: Tensor, ref_pts: Tensor) -> int:
+    """The bytes that one row of the batch holds at once in an iteration
+    of :func:`match_icp_points` of ``cur_pts [B, N, 2]`` onto ``ref_pts
+    [B, M, 2]``, on the search their device and dtype pick: ``N ·
+    BYTES_PER_POINT`` on the kernel, ``N · M · BYTES_PER_PAIR`` on the
+    plain block. Callers size their chunks of rows by it."""
+    n, m = cur_pts.shape[-2], ref_pts.shape[-2]
+    return n * BYTES_PER_POINT if searches_on_kernel(cur_pts, ref_pts) else n * m * BYTES_PER_PAIR
+
+
+def _nearest_two(q: Tensor, ref_pts: Tensor, ref_valid: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The nearest and second-nearest valid reference point of each point
+    of ``q [B, N, 2]`` and whether the nearest is at a finite distance:
+    ``(j, j2, nn_ok)``, each ``[B, N]``. On CUDA float32 tensors one
+    launch of the kernel (``nearest_two``, counted in the profiler's
+    ``icp.nearest_two_launches``), equal bit for bit to the plain block;
+    on anything else the plain block."""
+    if not searches_on_kernel(q, ref_pts):
+        return _nearest_two_plain(q, ref_pts, ref_valid)
+    b, m = q.shape[0], ref_pts.shape[1]
+    out = nearest_two(q.contiguous(), ref_pts.expand(b, m, 2), ref_valid.expand(b, m))
+    profiler.count("icp.nearest_two_launches", 1)
+    return out
+
+
+def _nearest_two_plain(q: Tensor, ref_pts: Tensor,
+                       ref_valid: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The plain version of :func:`_nearest_two`, on any device: the
+    masked ``[B, N, M]`` squared distances and two argmins."""
+    rx, ry = ref_pts[:, None, :, 0], ref_pts[:, None, :, 1]           # [B, 1, M]
+    dx = q[:, :, 0, None] - rx
+    dy = q[:, :, 1, None] - ry
+    d2 = torch.where(ref_valid[:, None, :], dx * dx + dy * dy, torch.inf)   # [B, N, M]
+    del dx, dy
+    j = torch.argmin(d2, dim=-1)
+    nn_ok = torch.isfinite(torch.gather(d2, -1, j[..., None])[..., 0])
+    d2.scatter_(-1, j[..., None], torch.inf)   # d2 is not read again
+    j2 = torch.argmin(d2, dim=-1)
+    return j, j2, nn_ok
+
+
 def match_icp_points(
     ref_pts: Tensor,
     ref_valid: Tensor,
@@ -60,7 +122,7 @@ def match_icp_points(
     points excluded). The clouds may be strided views.
 
     ``steps_per_nn > 1`` reuses each correspondence search (the
-    ``[B, N, M]`` distance pass) for that many pose updates: the
+    nearest-two search) for that many pose updates: the
     nearest-segment endpoints stay fixed while the projection target,
     gate, trim and closed-form update are recomputed per step. ``iters``
     still counts pose updates and the gate-decay schedule is unchanged
@@ -75,25 +137,15 @@ def match_icp_points(
     err = torch.full((b,), 1e6, dtype=dtype, device=dev)
     nm = torch.zeros(b, dtype=torch.int32, device=dev)
     match = torch.zeros(b, n, dtype=torch.bool, device=dev)
-    ref_ok = ref_valid[:, None, :]
     seg_max2 = (4.0 * min_corr) ** 2
 
-    rx, ry = ref_pts[:, None, :, 0], ref_pts[:, None, :, 1]           # [B, 1, M]
     n_outer = max((iters + steps_per_nn - 1) // steps_per_nn, 1)
     for it in range(n_outer):
         q = se2.transform_points(pose, cur_pts)                       # [B, N, 2]
         with trace("h1_nearest_two"):
-            dx = q[:, :, 0, None] - rx
-            dy = q[:, :, 1, None] - ry
-            d2 = torch.where(ref_ok, dx * dx + dy * dy, torch.inf)    # [B, N, M]
-            del dx, dy
-            j = torch.argmin(d2, dim=-1)
-            nn_ok = torch.isfinite(torch.gather(d2, -1, j[..., None])[..., 0])
             # Second nearest: the point-to-segment target lies between the
             # two nearest reference points.
-            d2.scatter_(-1, j[..., None], torch.inf)   # d2 is not read again
-            j2 = torch.argmin(d2, dim=-1)
-            del d2
+            j, j2, nn_ok = _nearest_two(q, ref_pts, ref_valid)
         p1 = _gather_pts(ref_pts, j)
         seg = _gather_pts(ref_pts, j2) - p1
         len2 = torch.sum(seg * seg, dim=-1)

@@ -5,7 +5,9 @@ of ``odometry.odometry_keyframe``. The sparse correlative score-volume
 kernel against the grouped conv of its plain version. The beam model's
 ray-march kernel against the dense ladder of its plain version, and the
 ray-cast + ICP update on the card against the CPU and, at the cell's
-shape, under a trace. Then the
+shape, under a trace. The point-ICP nearest-two search kernel against the
+plain ``[B, N, M]`` block, and ``match_icp_points`` with it against the
+benchmark's frozen copy. Then the
 loop-closure backend on the card: the chunk verifier against the same call
 on the CPU, and ``cli slam`` twice on a short log. Then the later paths on the card: the online
 session, localization, the ICP matchers, the loopback, the robot path,
@@ -33,7 +35,12 @@ from laser_slam_tpu_torch.localization import raycast
 from laser_slam_tpu_torch.ops import correlative, icp_points, odometry
 from laser_slam_tpu_torch.ops import preprocess as pp
 from laser_slam_tpu_torch.ops import psm
-from laser_slam_tpu_torch.ops.cuda import correlative_kernel, psm_kernel, raycast_kernel
+from laser_slam_tpu_torch.ops.cuda import (
+    correlative_kernel,
+    icp_nearest_kernel,
+    psm_kernel,
+    raycast_kernel,
+)
 from laser_slam_tpu_torch.utils import cuda_graphs
 from laser_slam_tpu_torch.utils.profiling import profiler
 
@@ -41,6 +48,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import synthetic_log  # noqa: E402
 import beam_cell as cell  # noqa: E402
+import icp_search_cases as icp_cases  # noqa: E402
 
 POSE_ATOL = 1e-4    # float32 op order (fused multiply-adds, block reductions)
 ERR_RTOL = 1e-4
@@ -716,11 +724,13 @@ def test_update_raycast_icp_on_the_card_against_the_cpu(cuda):
 
 def test_update_raycast_icp_at_the_cell_shape_credits_pf_icp(beam_cell):
     """One ray-cast + ICP update at the cell's shape (4096 poses, 361 beams,
-    a 2 cm map): one march launch, the search in 4 chunks of 1024 and
-    4096 · 361² · 10 pairs counted; under a ``torch.profiler`` window
-    ``benchmark/harness.summarize`` credits ``pf.icp`` with the search's
-    kernels, most of the update's device time, and ``pf.raycast`` with the
-    march."""
+    a 2 cm map): one march launch, the ICP in one chunk (the search is the
+    kernel, so an iteration holds ``[P, N]`` tensors, not ``[P, N, N]``),
+    one search launch an iteration and 4096 · 361² · 10 pairs counted;
+    under a ``torch.profiler`` window ``benchmark/harness.summarize``
+    credits ``pf.icp`` with the ICP's kernels, most of the update's device
+    time, ``h1_nearest_two`` with the search kernel through its operator,
+    and ``pf.raycast`` with the march."""
     from torch.profiler import ProfilerActivity, profile
 
     from benchmark import harness
@@ -732,6 +742,7 @@ def test_update_raycast_icp_at_the_cell_shape_credits_pf_icp(beam_cell):
     warm = pf.update_raycast_icp(state, grid, model, ranges, valid)
     profiler.reset()
     before = raycast_kernel.ray_march.launches
+    searches = icp_nearest_kernel.nearest_two.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         got = pf.update_raycast_icp(state, grid, model, ranges, valid)
@@ -739,8 +750,10 @@ def test_update_raycast_icp_at_the_cell_shape_credits_pf_icp(beam_cell):
     counts = profiler.counts()
     profiler.reset()
     assert raycast_kernel.ray_march.launches == before + 1
+    assert icp_nearest_kernel.nearest_two.launches == searches + 10
     assert torch.equal(got.log_w, warm.log_w) and torch.equal(got.poses, warm.poses)
-    assert counts["pf.icp_pairs"] == 4096 * 361 * 361 * 10 and counts["pf.icp_chunks"] == 4
+    assert counts["pf.icp_pairs"] == 4096 * 361 * 361 * 10 and counts["pf.icp_chunks"] == 1
+    assert counts["icp.nearest_two_launches"] == 10
     assert counts["pf.raycast_rays"] == 4096 * 361 and counts["pf.raycast_chunks"] == 1
     ranges_s = harness.summarize(prof, 1.0).range_device_s
     for name in ("pf.update", "pf.raycast", "pf.icp", "h1_nearest_two"):
@@ -748,6 +761,141 @@ def test_update_raycast_icp_at_the_cell_shape_credits_pf_icp(beam_cell):
     assert ranges_s["pf.icp"][1] > 0.6 * ranges_s["pf.update"][1], ranges_s
     assert ranges_s["h1_nearest_two"][1] <= ranges_s["pf.icp"][1], ranges_s
     assert int((~torch.isfinite(got.log_w)).sum()) == 0
+    names = {e.key for e in prof.key_averages()}
+    assert any("nearest_two_kernel" in k for k in names), sorted(names)
+
+
+def _search_both(q, ref, ok):
+    """The kernel's search and the plain block's on the same card."""
+    got = icp_points._nearest_two(q, ref, ok)
+    want = icp_points._nearest_two_plain(q, ref, ok)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_same_search(got, want):
+    for name, g, w in zip(("j", "j2", "nn_ok"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+
+
+def test_nearest_two_is_the_plain_search_at_the_icp_cell_shape(beam_cell):
+    """The first iteration's search of the icp cell's tick (4096 particles,
+    each one's 361 simulated points with the march's hit mask, the 361
+    observed points moved by its pose) in one launch, against the plain
+    block in chunks of 1024 as the parent searched: bit for bit."""
+    grid, model, cloud, ranges, valid = beam_cell
+    sim_pts, sim_ok, _, _, q = icp_cases.cell_clouds(grid, model, cloud, ranges, valid)
+    before = icp_nearest_kernel.nearest_two.launches
+    got = icp_points._nearest_two(q, sim_pts, sim_ok)
+    assert icp_nearest_kernel.nearest_two.launches == before + 1
+    want = [torch.cat(x) for x in zip(*(
+        icp_points._nearest_two_plain(q[i:i + 1024], sim_pts[i:i + 1024], sim_ok[i:i + 1024])
+        for i in range(0, 4096, 1024)))]
+    torch.cuda.synchronize()
+    _assert_same_search(got, want)
+    assert float(sim_ok.float().mean()) > 0.3 and bool(got[2].any())
+
+
+@pytest.mark.parametrize("name", ["LMS211", "LMS511"])
+def test_nearest_two_is_the_plain_search_at_pass_2_shapes(cuda, name):
+    """128 pairs of room scans at 181 and 361 beams, the previous scan's
+    valid points as the reference (pass 2's polish): bit for bit."""
+    model = getattr(S, name)
+    ref, cur, rel = pairs(model, 128, 41, cuda)
+    ref_pts, ref_ok = icp_points.scan_to_points(model, ref)
+    cur_pts, _ = icp_points.scan_to_points(model, cur)
+    init = torch.as_tensor(rel, dtype=torch.float32, device=cuda)
+    _assert_same_search(*_search_both(se2.transform_points(init, cur_pts), ref_pts, ref_ok))
+
+
+@pytest.mark.parametrize("case", ["edges", "edges_float64_plain", "expanded_over_tiles", "strided",
+                                  "many_tiles_of_points", "empty_batch"])
+def test_nearest_two_is_the_plain_search_at_edge_cases(cuda, case):
+    """Ties (the lower index first), a row with no candidate, with one,
+    points that are not finite, masked points of any value; a reference
+    cloud of 9001 points (three shared-memory tiles) expanded over 64
+    rows with stride 0 and never copied; a reference taken every other
+    point; 1500 observed points a row (two blocks of points); no rows."""
+    before = icp_nearest_kernel.nearest_two.launches
+    if case.startswith("edges"):
+        q, ref, ok = (torch.as_tensor(x, device=cuda) for x in icp_cases.edge_cases())
+        if case == "edges_float64_plain":       # another dtype takes the plain block
+            q, ref = q.double(), ref.double()
+            got = icp_points._nearest_two(q, ref, ok)
+            assert icp_nearest_kernel.nearest_two.launches == before
+            _assert_same_search(got, icp_points._nearest_two_plain(q, ref, ok))
+            return
+    elif case == "expanded_over_tiles":
+        q, ref, ok = (torch.as_tensor(x, device=cuda) for x in icp_cases.scan_clouds(64, 361, 9001, 3))
+        ref, ok = ref[:1].expand(64, 9001, 2), ok[:1].expand(64, 9001)
+        assert ref.stride(0) == 0 and ok.stride(0) == 0
+    elif case == "strided":
+        q, ref, ok = (torch.as_tensor(x, device=cuda) for x in icp_cases.scan_clouds(32, 181, 722, 4))
+        ref, ok = ref[:, ::2], ok[:, ::2]
+    elif case == "many_tiles_of_points":
+        q, ref, ok = (torch.as_tensor(x, device=cuda) for x in icp_cases.scan_clouds(8, 1500, 361, 5))
+    else:
+        q, ref, ok = (torch.as_tensor(x, device=cuda) for x in icp_cases.scan_clouds(3, 50, 40, 6))
+        q = q[:0]
+        ref, ok = ref[:0], ok[:0]
+    got, want = _search_both(q, ref, ok)
+    _assert_same_search(got, want)
+    assert icp_nearest_kernel.nearest_two.launches == before + (case != "empty_batch")
+    if case == "edges":
+        j, j2, nn_ok = (x.cpu().numpy() for x in got)
+        assert j[0, 3] == 2 and j2[0, 3] == 5 and not nn_ok[2].any() and (j2[3] == 0).all()
+
+
+def test_nearest_two_wrapper_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 5, 2, device=cuda)
+    ref = torch.zeros(2, 7, 2, device=cuda)
+    ok = torch.ones(2, 7, dtype=torch.bool, device=cuda)
+    before = icp_nearest_kernel.nearest_two.launches
+    for bad in ((q, ref, ok.cpu()), (q.cpu(), ref, ok), (q, ref.double(), ok),
+                (q, ref, ok[:, :3]), (q, ref[:, :0], ok[:, :0])):
+        with pytest.raises(ValueError):
+            icp_nearest_kernel.nearest_two(*bad)
+    assert icp_nearest_kernel.nearest_two.launches == before
+    j, j2, nn_ok = icp_nearest_kernel.nearest_two(q, ref, ok)
+    torch.cuda.synchronize()
+    assert icp_nearest_kernel.nearest_two.launches == before + 1
+    assert (j == 0).all() and (j2 == 1).all() and nn_ok.all()
+
+
+@pytest.mark.parametrize("what", ["icp_cell_chunks", "pass_2_polish"])
+def test_match_icp_points_on_the_card_is_the_frozen_copy(beam_cell, what):
+    """The whole match on the card, the kernel's search inside, bit for bit
+    the benchmark's frozen ``match_icp_points`` (the plain search written
+    inline) on the same inputs: the icp cell's tick in its parent's chunks
+    of 1024 (10 iterations from 0.6 m), and pass 2's 15-iteration polish
+    of 128 pairs at 181 and 361 beams (0.3 m)."""
+    from benchmark.reference.slam.ops import icp_points as frozen
+
+    dev = torch.device("cuda")
+    if what == "icp_cell_chunks":
+        grid, model, cloud, ranges, valid = beam_cell
+        sim_pts, sim_ok, scan_pts, scan_ok, _ = icp_cases.cell_clouds(
+            grid, model, cloud, ranges, valid)
+        calls = [((sim_pts[i:i + 1024], sim_ok[i:i + 1024], scan_pts[i:i + 1024],
+                   scan_ok[i:i + 1024], cloud[i:i + 1024]), dict(iters=10, max_corr=0.6))
+                 for i in range(0, 4096, 1024)]
+    else:
+        calls = []
+        for model in (S.LMS211, S.LMS511):
+            ref, cur, rel = pairs(model, 128, 43, dev)
+            init = torch.as_tensor(rel, dtype=torch.float32, device=dev)
+            calls.append(((*icp_points.scan_to_points(model, ref),
+                           *icp_points.scan_to_points(model, cur), init),
+                          dict(iters=15, max_corr=0.3)))
+    before = icp_nearest_kernel.nearest_two.launches
+    for args, kw in calls:
+        got = icp_points.match_icp_points(*args, **kw)
+        want = frozen.match_icp_points(*args, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g, w), (what, name)
+    assert icp_nearest_kernel.nearest_two.launches == before + sum(kw["iters"] for _, kw in calls)
 
 
 def test_systematic_resample_on_the_card_against_the_cpu(cuda):

@@ -1,6 +1,6 @@
 """The one binding of the port's CUDA kernels (``ops/cuda/nvcc.py``) on the
 CPU: a launch that fails raises with the library's own error string, the
-four operators are registered whichever wrapper is imported first, and no
+five operators are registered whichever wrapper is imported first, and no
 other module of the package makes a dispatcher library or declares a C
 entry. The build itself is held by
 ``test_torch_correlative_sparse.py::test_first_builds_from_two_threads_run_nvcc_once``;
@@ -20,8 +20,8 @@ from laser_slam_tpu_torch.ops.cuda import nvcc
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "laser_slam_tpu_torch"
-WRAPPERS = ("psm_kernel", "correlative_kernel", "raycast_kernel")
-OPERATORS = ("corr_volume", "ray_march", "psm_match", "psm_chain")
+WRAPPERS = ("psm_kernel", "correlative_kernel", "raycast_kernel", "icp_nearest_kernel")
+OPERATORS = ("corr_volume", "ray_march", "psm_match", "psm_chain", "nearest_two")
 
 
 @pytest.mark.parametrize("rc", [0, 700])

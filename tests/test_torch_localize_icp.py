@@ -2,9 +2,10 @@
 on the port's normal paths, on the CPU: the batched update against a loop
 of single-particle matches and against the benchmark's plain reference
 (``benchmark/reference/localize_icp.py``), what the nudge and the goodness
-weights do, the weight of a failed match, ``update_icp``'s results through
-the shared weight-and-nudge helper, ``cli localize --model icp`` and
-``SlamV1``'s localization mode with ``observation_model="icp"``.
+weights do, the weight of a failed match, the ICP's chunk rule on each
+path, ``update_icp``'s results through the shared weight-and-nudge helper,
+``cli localize --model icp`` and ``SlamV1``'s localization mode with
+``observation_model="icp"``.
 
 The room's sensor reaches 10 m, so the CPU's dense ladder stays short
 (200 samples at 5 cm); the CLI runs on a coarse map (0.2 m cells).
@@ -28,9 +29,11 @@ from laser_slam_tpu_torch.mapping.occupancy import (
     integrate_scans,
     spec_for_trajectory,
 )
+from laser_slam_tpu_torch.ops import icp_points
 from laser_slam_tpu_torch.ops.icp_points import match_icp_points
 from laser_slam_tpu_torch.ops.preprocess import preprocess
 from laser_slam_tpu_torch.runtime import facade as tfacade
+from laser_slam_tpu_torch.utils.profiling import profiler
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -163,6 +166,67 @@ def test_failed_match_weighs_1e6(room):
     want = torch.log(torch.tensor(1e-6) + 1e-12) - torch.log(g + 1e-12)
     assert abs(float(gap - want)) < 1e-5, (float(gap), float(want))
     assert torch.equal(ok.poses[0], got.poses[0])
+
+
+def _icp_chunks(state, grid, ranges, valid, chunk):
+    """The update and the search's chunks it counts."""
+    profiler.reset()
+    profiler.enable()
+    try:
+        got = pf.update_raycast_icp(state, grid, ROOM_MODEL, ranges, valid, chunk=chunk)
+        return got, profiler.counts()["pf.icp_chunks"]
+    finally:
+        profiler.disable()
+        profiler.reset()
+
+
+def test_cpu_chunk_rule_and_chunk_argument_are_unchanged(room, monkeypatch):
+    """On the CPU the plain search holds ``[P, N, N]``: as many particles
+    a chunk as ``N² · BYTES_PER_PAIR`` (``icp_points.bytes_per_row``) fit
+    ``CHUNK_BYTES``, in the fewest chunks of equal size (4 of 1024 at the
+    icp cell's 4096 x 361); ``chunk=`` wins; the weights do not depend on
+    the chunks, the poses only in the last bits of CPU ``atan2`` (as in
+    the loop test above)."""
+    cloud = torch.zeros(4096, 361, 2)
+    assert icp_points.bytes_per_row(cloud, cloud) == 361 * 361 * icp_points.BYTES_PER_PAIR
+    assert -(-4096 // pf._chunk(4096, icp_points.bytes_per_row(cloud, cloud), None)) == 4
+    grid, state, ranges, valid = room
+    n = ROOM_MODEL.n_beams
+    # Twelve particles' [N, N] intermediates fill the chunk's bytes: 3 chunks of 11.
+    monkeypatch.setattr(pf, "CHUNK_BYTES", 12 * n * n * icp_points.BYTES_PER_PAIR)
+    whole, chunks = _icp_chunks(state, grid, ranges, valid, None)
+    assert chunks == 3
+    for chunk, want in ((5, 7), (32, 1), (100, 1)):
+        got, chunks = _icp_chunks(state, grid, ranges, valid, chunk)
+        assert chunks == want, chunk
+        assert torch.equal(got.log_w, whole.log_w)
+        np.testing.assert_allclose(got.poses.numpy(), whole.poses.numpy(), rtol=0, atol=1e-5)
+
+
+def test_kernel_path_reckons_points_not_pairs(room, monkeypatch):
+    """Where the kernel searches (CUDA float32, here its predicate made to
+    say so on the CPU) an iteration holds ``[P, N]`` tensors, so the chunk
+    reckons ``N · BYTES_PER_POINT`` a particle (``icp_points.bytes_per_row``):
+    the icp cell's 4096 x 361 is one chunk, and the CHUNK_BYTES that cuts
+    the plain search in 3 leaves the room's 32 particles whole; ``chunk=``
+    still wins."""
+    grid, state, ranges, valid = room
+    n = ROOM_MODEL.n_beams
+    cloud = torch.zeros(4096, 361, 2)
+    with monkeypatch.context() as m:
+        m.setattr(icp_points, "searches_on_kernel", lambda cur, ref: True)
+        kernel_bytes = icp_points.bytes_per_row(cloud, cloud)
+    assert kernel_bytes == 361 * icp_points.BYTES_PER_POINT
+    assert pf._chunk(4096, kernel_bytes, None) == 4096
+    # The update's chunks by the kernel's rule; its searches stay on the CPU's block.
+    monkeypatch.setattr(icp_points, "bytes_per_row",
+                        lambda cur, ref: cur.shape[-2] * icp_points.BYTES_PER_POINT)
+    monkeypatch.setattr(pf, "CHUNK_BYTES", 12 * n * n * icp_points.BYTES_PER_PAIR)
+    assert _icp_chunks(state, grid, ranges, valid, None)[1] == 1
+    assert _icp_chunks(state, grid, ranges, valid, 5)[1] == 7
+    # A budget of 10 particles' [N] tensors: 4 chunks of 8.
+    monkeypatch.setattr(pf, "CHUNK_BYTES", 10 * n * icp_points.BYTES_PER_POINT)
+    assert _icp_chunks(state, grid, ranges, valid, None)[1] == 4
 
 
 def test_update_icp_keeps_its_results(room):

@@ -41,6 +41,9 @@ PF_GRAPH_COUNTERS = ("pf.graph_captures", "pf.graph_replays")
 # ``update_raycast_icp``: the update, its march and its ICP chunk loop.
 PF_ICP_SPANS = ("pf.update", "pf.raycast", "pf.icp")
 PF_ICP_COUNTERS = ("pf.icp_pairs", "pf.icp_chunks", "pf.raycast_rays", "pf.raycast_chunks")
+# ``match_icp_points``' search: one kernel launch a search on CUDA float32
+# tensors, none on the CPU.
+ICP_KERNEL_COUNTERS = ("icp.nearest_two_launches",)
 
 
 def short_log(n=40, whip_at=20, seed=40):
@@ -247,8 +250,9 @@ def test_raycast_icp_spans_nest_and_counters_count(registry, log, chunk):
     its spans is one range, ``pf.raycast`` and ``pf.icp`` inside
     ``pf.update`` and the ten ``h1_nearest_two`` searches inside
     ``pf.icp``; its counters add ``P · N`` rays in one march chunk and
-    ``P · N² · 10`` pairs in ``⌈P / chunk⌉`` search chunks; the result is
-    the same either way."""
+    ``P · N² · 10`` pairs in ``⌈P / chunk⌉`` search chunks, and on the
+    CPU no search launches the kernel; the result is the same either
+    way."""
     poses, _, scans = log
     gt = torch.from_numpy(poses.astype(np.float32))
     grid = integrate_scans(empty_grid(spec_for_trajectory(poses, 8.0, 0.1)), LMS211, scans, gt)
@@ -266,6 +270,7 @@ def test_raycast_icp_spans_nest_and_counters_count(registry, log, chunk):
     n = LMS211.n_beams
     assert registry.counts() == dict(zip(PF_ICP_COUNTERS, (
         12 * n * n * 10, 1 if chunk is None else 3, 12 * n, 1)))
+    assert not set(registry.counts()) & set(ICP_KERNEL_COUNTERS)
     events = {}
     for e in prof.events():
         events.setdefault(e.name, []).append(e.time_range)
