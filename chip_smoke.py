@@ -1129,12 +1129,12 @@ def localize_phase(cli, log_path, log, smi):
     def valid_at(i):
         return ~scans.bad[i] & (scans.ranges[i] < model.max_range)
 
-    # Global relocalization from 10,000 uniform samples, as the facade's
-    # localization mode starts: the kept samples are ranked, in free space.
+    # Global relocalization from 10,000 samples over the map's free space,
+    # as the facade's field mode starts: the kept samples are ranked.
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     reloc, reloc_s = host_s(lambda: pf.global_relocalize(
-        gen, grid, field, model, scans.ranges[split], valid_at(split), n_samples=10_000))
+        gen, "field", grid, field, model, scans.ranges[split], valid_at(split)))
     best = reloc.poses[0].cpu().numpy()
     cells = spec.world_to_cell(reloc.poses[:, :2])
     if reloc.poses.shape != (1024, 3) or not bool((reloc.log_w[:-1] >= reloc.log_w[1:]).all()) \

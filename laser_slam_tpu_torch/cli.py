@@ -15,7 +15,11 @@ Usage: ``python -m laser_slam_tpu_torch.cli <command> [options]``
   error against the ground truth. ``--model`` picks the observation
   model: ``field`` (likelihood field, the default), ``beam`` (the
   ray-cast beam model) or ``icp`` (each particle's scan ray-cast from
-  the map and the real scan aligned onto it by point ICP).
+  the map and the real scan aligned onto it by point ICP). ``--global``
+  starts from a global relocalization on the first tracked scan (10,000
+  samples over the map's free space, the best ``--particles`` kept;
+  scored by ray-cast + ICP with ``--model icp``, else on the likelihood
+  field) instead of a cloud around the ground truth.
 - ``eval``: ATE / RPE of a trajectory file against a log's ground truth,
   as one JSON line.
 - ``view``: replay a log along a trajectory (``--traj``, default its
@@ -216,29 +220,31 @@ def cmd_localize(args) -> LocalizeRun:
     spec = spec_for_trajectory(log.gt_pose[: log.n_scans], model.max_range, args.resolution)
     grid = integrate_scans(
         empty_grid(spec, device=dev), model, type(scans)(*(x[:split] for x in scans)), gt[:split])
-    field = likelihood_field(grid) if args.model == "field" else None
-
-    def update(state, ranges, valid):
-        if args.model == "beam":
-            return pf.update_beam(state, grid, model, ranges, valid)
-        if args.model == "icp":
-            return pf.update_raycast_icp(state, grid, model, ranges, valid)
-        return pf.update_field(state, field, grid, model, ranges, valid)
+    # The field weighs with ``--model field``; with ``--global`` it also
+    # relocalizes, unless ``--model icp`` relocalizes by ray-cast + ICP.
+    with_field = args.model == "field" or (args.global_ and args.model == "beam")
+    field = likelihood_field(grid) if with_field else None
+    free = pf.free_cells(grid) if args.global_ else None
 
     generator = torch.Generator(device=dev)
     generator.manual_seed(0)
-    state = pf.init_gaussian(generator, gt[split], args.particles)
+    state = None if args.global_ else pf.init_gaussian(generator, gt[split], args.particles)
 
     # A tick is predict + weight + resample + estimate, all on the device;
-    # the estimates are read back once, after the last tick.
+    # the estimates are read back once, after the last tick. With
+    # ``--global`` the first tick relocalizes instead of predicting.
     ests = []
     t0 = time.time()
     ticks = range(split + 1, min(split + 1 + args.steps, log.n_scans))
     for t in ticks:
         rel = se2.relative(gt[t - 1], gt[t])  # odometry stand-in
         valid = ~scans.bad[t] & (scans.ranges[t] < model.max_range)
-        state = pf.predict(state, rel, generator, sigma_xy=0.05, sigma_theta=0.03)
-        state = update(state, scans.ranges[t], valid)
+        if state is None:
+            state = pf.relocalize_and_weigh(generator, args.model, grid, field, model,
+                                            scans.ranges[t], valid, args.particles, free)
+        else:
+            state = pf.predict(state, rel, generator, sigma_xy=0.05, sigma_theta=0.03)
+            state = pf.weigh(args.model, state, grid, field, model, scans.ranges[t], valid)
         state = pf.maybe_resample(state, generator)
         ests.append(pf.estimate(state))
     if not ests:
@@ -430,6 +436,9 @@ def main(argv=None):
     sp.add_argument("--model", choices=("field", "beam", "icp"), default="field",
                     help="observation model: likelihood field, ray-cast beam model, or "
                          "ray-cast + ICP")
+    sp.add_argument("--global", dest="global_", action="store_true",
+                    help="start from a global relocalization on the first tracked scan "
+                         "instead of a cloud around the ground truth")
     sp.set_defaults(fn=cmd_localize)
 
     sp = sub.add_parser("view", help="live viewer replay of a log (GIF/window)")

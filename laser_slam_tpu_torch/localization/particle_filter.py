@@ -15,18 +15,20 @@ using any of four observation models:
   the same point ICP, with the same goodness weights and nudge.
 
 Resampling is systematic, triggered below Neff < 0.5·P. Global
-relocalization scores a large uniform pose batch in one shot.
+relocalization draws a large batch of poses uniformly over the map's
+free space and scores it in one shot, on the field or by ray-cast + ICP.
 
 Random numbers come from an explicit ``torch.Generator`` on the cloud's
 device, never from the global state. Every sampling function is split
 into its draw and a deterministic part that takes the draws
 (``init_from_noise``, ``predict_with_noise``, ``systematic_resample_at``,
-``maybe_resample_at``, ``global_relocalize_poses``, ``kld_resample_at``),
+``maybe_resample_at``, ``global_relocalize_at``, ``kld_resample_at``),
 so that the same draws give the same cloud whatever made them.
 
 Where a rank decides (``estimate``, ``dispersion``, the kept samples of
 ``global_relocalize``), equal scores are the rule: log-weights are equal
-right after a resample, and every sample outside free space scores 0.
+right after a resample, every failed ICP match weighs 1e-6, and a
+field-scored sample outside free space scores 0.
 Among equals the lower index wins (a stable descending sort).
 
 The tick's four phases (``predict_with_noise``, ``update_field``,
@@ -259,11 +261,13 @@ def update_icp(
 ) -> ParticleState:
     """ICP-refined update: match the scan ``[N, 2]`` from each particle
     pose against the map cloud ``[M, 2]``; weight by goodness and
-    (optionally) move the particle to the corrected pose. The
-    nearest-neighbour search holds ``[P, N, M]``, so the cloud goes
-    through it in chunks of particles, as in :func:`update_beam`."""
+    (optionally) move the particle to the corrected pose. The cloud goes
+    through the ICP in chunks of ``chunk`` particles if given, else of as
+    many as fit ``CHUNK_BYTES`` by ``icp_points.bytes_per_row``: ``[P, N]``
+    intermediates where the kernel searches (CUDA float32), ``[P, N, M]``
+    on the plain search."""
     n, m = scan_pts.shape[0], map_pts.shape[0]
-    step = _chunk(state.n, n * m * icp_points.BYTES_PER_PAIR, chunk)
+    step = _chunk(state.n, icp_points.bytes_per_row(scan_pts, map_pts), chunk)
     res = []
     for i in range(0, state.n, step):
         p = state.poses[i:i + step]
@@ -442,9 +446,9 @@ def global_relocalize_poses(
     valid: Tensor,
     n_keep: int = 1024,
 ) -> ParticleState:
-    """Score the sampled ``poses [S, 3]`` in one shot and keep the best
-    ``n_keep`` as the new cloud. A sample whose cell is not known free
-    space scores 0."""
+    """Score the sampled ``poses [S, 3]`` on the likelihood ``field`` in
+    one shot and keep the best ``n_keep`` as the new cloud. A sample whose
+    cell is not known free space scores 0."""
     spec = grid.spec
     x, y = poses[:, 0], poses[:, 1]
     ix = torch.floor((x - spec.origin_x) / spec.resolution).to(torch.int64)
@@ -462,29 +466,174 @@ def global_relocalize_poses(
     )
 
 
-def global_relocalize(
-    generator: torch.Generator,
+def global_relocalize_raycast_icp(
+    poses: Tensor,
     grid: OccupancyGrid,
-    field: Tensor,
     model: LaserModel,
     ranges: Tensor,
     valid: Tensor,
-    n_samples: int = 10_000,
     n_keep: int = 1024,
 ) -> ParticleState:
-    """Global relocalization: a uniform batch of ``n_samples`` poses over
-    the grid's extent, scored by :func:`global_relocalize_poses`."""
-    spec = grid.spec
-    u = torch.rand(3, n_samples, generator=generator, device=generator.device)
-    poses = torch.stack(
+    """Score the sampled ``poses [S, 3]`` as the reference's
+    ``obsLikelyhood`` scores them and keep the best ``n_keep``: one
+    :func:`update_raycast_icp` of the samples from equal weights (goodness
+    weights, ``1e-6`` for a failed match, each sample moved to its
+    corrected pose), then the top ``n_keep`` by log-weight, the lower
+    index first among equals, normalized."""
+    equal = _normalize(torch.zeros(poses.shape[0], dtype=poses.dtype, device=poses.device))
+    scored = update_raycast_icp(ParticleState(poses, equal), grid, model, ranges, valid)
+    vals, idx = _top(scored.log_w, n_keep)
+    return ParticleState(poses=scored.poses[idx], log_w=_normalize(vals))
+
+
+# The reference's global relocalization draws 10,000 samples
+# (``g_num_of_global_particles``): :func:`global_relocalize`'s default.
+RELOC_SAMPLES = 10_000
+# The share of a cell's side left out on each side by the free-space
+# sampler: a sample lies inside its cell after float32 rounding (~1e-3 of
+# a 2 cm cell at 100 m from the origin), so every cell lookup finds it
+# there.
+FREE_CELL_MARGIN = 0.01
+# The observation models that weigh a cloud (:func:`weigh`).
+OBSERVATION_MODELS = ("field", "beam", "icp")
+
+
+def free_cells(grid: OccupancyGrid) -> Tensor:
+    """The table of the map's free cells (``log_odds < 0``): their flat
+    indices ``iy · width + ix`` in row-major order, int64, on the grid's
+    device. ``nonzero`` waits for the device, so the table is built once
+    per map, in set-up, never inside a tick. Counter
+    ``pf.reloc_free_cells`` adds its length (a host integer)."""
+    free = torch.nonzero(grid.log_odds.reshape(-1) < 0.0).reshape(-1)
+    if free.numel() == 0:
+        raise ValueError("the map has no free cell to relocalize in")
+    profiler.count("pf.reloc_free_cells", free.numel())
+    return free
+
+
+def free_space_poses(free: Tensor, spec, u: Tensor) -> Tensor:
+    """Poses ``[S, 3]`` from uniforms ``u [S, 4]``: the cell
+    ``free[floor(u0 · n_free)]`` of the table :func:`free_cells`, x and y
+    uniform inside it (``u1``, ``u2`` over the cell less
+    ``FREE_CELL_MARGIN`` on each side) and the heading ``-π + u3 · 2π``.
+    Every pose lies in a free cell, uniform over free space: rejection
+    sampling's distribution with nothing rejected."""
+    n = free.shape[0]
+    k = torch.clamp((u[:, 0] * n).to(torch.int64), max=n - 1)
+    cell = free[k]
+    iy = torch.div(cell, spec.width, rounding_mode="floor")
+    ix = cell - iy * spec.width
+    inner = 1.0 - 2.0 * FREE_CELL_MARGIN
+    fx = FREE_CELL_MARGIN + u[:, 1] * inner
+    fy = FREE_CELL_MARGIN + u[:, 2] * inner
+    return torch.stack(
         [
-            spec.origin_x + u[0] * (spec.width * spec.resolution),
-            spec.origin_y + u[1] * (spec.height * spec.resolution),
-            -torch.pi + u[2] * (2.0 * torch.pi),
+            spec.origin_x + (ix.to(u.dtype) + fx) * spec.resolution,
+            spec.origin_y + (iy.to(u.dtype) + fy) * spec.resolution,
+            -torch.pi + u[:, 3] * (2.0 * torch.pi),
         ],
         dim=-1,
     )
-    return global_relocalize_poses(poses, grid, field, model, ranges, valid, n_keep)
+
+
+def global_relocalize_at(
+    u: Tensor,
+    free: Tensor,
+    observation_model: str,
+    grid: OccupancyGrid,
+    field: Tensor | None,
+    model: LaserModel,
+    ranges: Tensor,
+    valid: Tensor,
+    n_keep: int = 1024,
+) -> ParticleState:
+    """Global relocalization from the uniforms ``u [S, 4]``: ``S`` poses
+    drawn from free space (:func:`free_space_poses` over the table
+    ``free``), the best ``n_keep`` kept. With ``observation_model``
+    ``"icp"`` they are scored by ray-cast + ICP, the reference's own
+    scoring (:func:`global_relocalize_raycast_icp`; ``field`` unused);
+    with ``"field"`` or ``"beam"`` on the likelihood ``field``
+    (:func:`global_relocalize_poses`).
+
+    Span ``pf.relocalize`` around the whole of it (the sampler, the
+    scoring, the top ``n_keep``; ``pf.update``, ``pf.raycast`` and
+    ``pf.icp`` lie inside it on the ray-cast + ICP path). Counters, host
+    integers: ``pf.reloc_samples`` adds ``S``, ``pf.reloc_kept``
+    ``n_keep``."""
+    with trace("pf.relocalize"):
+        profiler.count("pf.reloc_samples", u.shape[0])
+        profiler.count("pf.reloc_kept", n_keep)
+        poses = free_space_poses(free, grid.spec, u)
+        if observation_model == "icp":
+            return global_relocalize_raycast_icp(poses, grid, model, ranges, valid, n_keep)
+        return global_relocalize_poses(poses, grid, field, model, ranges, valid, n_keep)
+
+
+def global_relocalize(
+    generator: torch.Generator,
+    observation_model: str,
+    grid: OccupancyGrid,
+    field: Tensor | None,
+    model: LaserModel,
+    ranges: Tensor,
+    valid: Tensor,
+    n_samples: int = RELOC_SAMPLES,
+    n_keep: int = 1024,
+    free: Tensor | None = None,
+) -> ParticleState:
+    """Global relocalization, the reference's ``globalization``:
+    ``n_samples`` uniform poses over the map's free space, scored as
+    ``observation_model`` names, the best ``n_keep`` kept
+    (:func:`global_relocalize_at`). ``free`` is the map's table of free
+    cells (:func:`free_cells`), built here where the caller has none."""
+    if free is None:
+        free = free_cells(grid)
+    u = torch.rand(n_samples, 4, generator=generator, device=generator.device)
+    return global_relocalize_at(u, free, observation_model, grid, field, model, ranges, valid,
+                                n_keep)
+
+
+def weigh(
+    observation_model: str,
+    state: ParticleState,
+    grid: OccupancyGrid,
+    field: Tensor | None,
+    model: LaserModel,
+    ranges: Tensor,
+    valid: Tensor,
+) -> ParticleState:
+    """The tick's update by the named observation model
+    (``OBSERVATION_MODELS``): ``"field"`` :func:`update_field` on
+    ``field``, ``"beam"`` :func:`update_beam`, ``"icp"``
+    :func:`update_raycast_icp`."""
+    if observation_model == "beam":
+        return update_beam(state, grid, model, ranges, valid)
+    if observation_model == "icp":
+        return update_raycast_icp(state, grid, model, ranges, valid)
+    return update_field(state, field, grid, model, ranges, valid)
+
+
+def relocalize_and_weigh(
+    generator: torch.Generator,
+    observation_model: str,
+    grid: OccupancyGrid,
+    field: Tensor | None,
+    model: LaserModel,
+    ranges: Tensor,
+    valid: Tensor,
+    n_keep: int,
+    free: Tensor,
+) -> ParticleState:
+    """The first tick of tracking with no cloud yet: :func:`global_relocalize`
+    from the reference's ``RELOC_SAMPLES`` in place of the predict. With
+    ``"icp"`` its ray-cast + ICP scoring is the tick's update; with
+    ``"field"`` or ``"beam"`` the cloud it kept on ``field`` is then
+    weighed by the model (:func:`weigh`)."""
+    state = global_relocalize(generator, observation_model, grid, field, model, ranges, valid,
+                              n_keep=n_keep, free=free)
+    if observation_model == "icp":
+        return state
+    return weigh(observation_model, state, grid, field, model, ranges, valid)
 
 
 # --- KLD adaptive sampling ------------------------------------------------

@@ -81,9 +81,12 @@ class SlamV1:
     ``work_mode``: ``"mapping"`` (online SLAM) or ``"localization"``
     (particle filter against ``localization_grid``, weighted by the
     ``observation_model``: ``"field"``, the likelihood field,
-    ``"beam"``, the ray-cast beam model, or ``"icp"``, ray-cast + ICP;
-    global relocalization on the first scan scores on the field either
-    way). Everything runs on ``device``: ``cuda`` unless the caller names
+    ``"beam"``, the ray-cast beam model, or ``"icp"``, ray-cast + ICP).
+    The first scan relocalizes globally from samples over the map's free
+    space: in ``"icp"`` mode scored by ray-cast + ICP, the reference's
+    own ``globalization``, which is that scan's update (no likelihood
+    field is built); otherwise scored on the field, then weighted by the
+    model. Everything runs on ``device``: ``cuda`` unless the caller names
     another, and then construction raises where there is no CUDA device.
     The particle filter draws from a ``torch.Generator`` on that device,
     seeded with ``seed``.
@@ -112,6 +115,7 @@ class SlamV1:
         self._slam: OnlineSlam | None = None
         self._pf_state: pf.ParticleState | None = None
         self._field = None
+        self._free = None
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
         self._pending_rel = np.zeros(3, np.float32)
@@ -128,11 +132,13 @@ class SlamV1:
         elif self.work_mode == "localization":
             if self.localization_grid is None:
                 raise ValueError("localization mode needs localization_grid")
-            if self.observation_model not in ("field", "beam", "icp"):
+            if self.observation_model not in pf.OBSERVATION_MODELS:
                 raise ValueError(f"unknown observation_model {self.observation_model!r}")
             grid = self.localization_grid
             self.localization_grid = OccupancyGrid(grid.log_odds.to(self.device), grid.spec)
-            self._field = likelihood_field(self.localization_grid)
+            self._free = pf.free_cells(self.localization_grid)
+            if self.observation_model != "icp":
+                self._field = likelihood_field(self.localization_grid)
         else:
             raise ValueError(f"unknown work_mode {self.work_mode!r}")
         self._running = True
@@ -257,23 +263,16 @@ class SlamV1:
         valid = ~scan.bad
         if self._pf_state is None:
             # Global relocalization on the first scan.
-            self._pf_state = pf.global_relocalize(
-                self._generator, self.localization_grid, self._field, self.model,
-                scan.ranges, valid, n_keep=self.n_particles,
+            self._pf_state = pf.relocalize_and_weigh(
+                self._generator, self.observation_model, self.localization_grid, self._field,
+                self.model, scan.ranges, valid, self.n_particles, self._free,
             )
         else:
             rel = torch.from_numpy(self._pending_rel).to(self.device)
             self._pf_state = pf.predict(self._pf_state, rel, self._generator)
             self._pending_rel = np.zeros(3, np.float32)
-        if self.observation_model == "beam":
-            self._pf_state = pf.update_beam(
-                self._pf_state, self.localization_grid, self.model, scan.ranges, valid)
-        elif self.observation_model == "icp":
-            self._pf_state = pf.update_raycast_icp(
-                self._pf_state, self.localization_grid, self.model, scan.ranges, valid)
-        else:
-            self._pf_state = pf.update_field(
-                self._pf_state, self._field, self.localization_grid,
+            self._pf_state = pf.weigh(
+                self.observation_model, self._pf_state, self.localization_grid, self._field,
                 self.model, scan.ranges, valid,
             )
         self._pf_state = pf.maybe_resample(self._pf_state, self._generator)

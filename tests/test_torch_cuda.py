@@ -5,7 +5,9 @@ of ``odometry.odometry_keyframe``. The sparse correlative score-volume
 kernel against the grouped conv of its plain version. The beam model's
 ray-march kernel against the dense ladder of its plain version, and the
 ray-cast + ICP update on the card against the CPU and, at the cell's
-shape, under a trace. The point-ICP nearest-two search kernel against the
+shape, under a trace; global relocalization's sampler and scoring
+against the benchmark's reference at the relocalization cell's shape. The
+point-ICP nearest-two search kernel against the
 plain ``[B, N, M]`` block, and ``match_icp_points`` with it against the
 benchmark's frozen copy. Then the
 loop-closure backend on the card: the chunk verifier against the same call
@@ -763,6 +765,75 @@ def test_update_raycast_icp_at_the_cell_shape_credits_pf_icp(beam_cell):
     assert int((~torch.isfinite(got.log_w)).sum()) == 0
     names = {e.key for e in prof.key_averages()}
     assert any("nearest_two_kernel" in k for k in names), sorted(names)
+
+
+def test_reloc_sampler_is_the_references_at_the_cell_shape(beam_cell):
+    """The table of the 2 cm map's free cells and 10,000 samples drawn
+    from it on the card equal the benchmark reference's bit for bit, and
+    every sample lies in a free cell by the map's own lookup."""
+    from benchmark.reference import relocalize_icp as ref
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    grid = beam_cell[0]
+    free = pf.free_cells(grid)
+    assert torch.equal(free, ref.free_cells(grid.log_odds))
+    assert 100_000 < free.numel() < grid.log_odds.numel() // 10
+    u = torch.rand(10_000, 4, generator=torch.Generator(device="cuda").manual_seed(2),
+                   device="cuda")
+    poses = pf.free_space_poses(free, grid.spec, u)
+    assert torch.equal(poses, ref.sample(free, grid.spec, u))
+    ix, iy = grid.spec.world_to_cell(poses[:, :2]).unbind(-1)
+    assert bool((grid.log_odds[iy, ix] < 0).all())
+
+
+def test_reloc_at_the_cell_shape_against_the_reference(beam_cell):
+    """One relocalization at the cell's shape (10,000 free-space samples,
+    361 beams, the 2 cm map, 4096 kept) on the card: the scoring of every
+    sample against the reference's (99th percentiles over the samples of
+    the log-weight and pose gaps under the cell's limits; the kept cloud's
+    log-weights by rank, their mean gap and 99th percentile); one march
+    launch, the ICP in one chunk, ten
+    search launches; ``pf.relocalize`` credited with the update's device
+    time under a ``torch.profiler`` window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import harness
+    from benchmark.reference import relocalize_icp as ref
+    from laser_slam_tpu_torch.localization import particle_filter as pf
+
+    grid, model, _, ranges, valid = beam_cell
+    free = pf.free_cells(grid)
+    u = torch.rand(10_000, 4, generator=torch.Generator(device="cuda").manual_seed(3),
+                   device="cuda")
+    poses = pf.free_space_poses(free, grid.spec, u)
+    warm = pf.global_relocalize_at(u, free, "icp", grid, None, model, ranges, valid, 4096)
+    profiler.reset()
+    before = raycast_kernel.ray_march.launches
+    searches = icp_nearest_kernel.nearest_two.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = pf.global_relocalize_at(u, free, "icp", grid, None, model, ranges, valid, 4096)
+        torch.cuda.synchronize()
+    counts = profiler.counts()
+    profiler.reset()
+    assert torch.equal(got.log_w, warm.log_w) and torch.equal(got.poses, warm.poses)
+    assert raycast_kernel.ray_march.launches == before + 1
+    assert icp_nearest_kernel.nearest_two.launches == searches + 10
+    assert counts["pf.reloc_samples"] == 10_000 and counts["pf.reloc_kept"] == 4096
+    assert counts["pf.icp_pairs"] == 10_000 * 361 * 361 * 10 and counts["pf.icp_chunks"] == 1
+    ranges_s = harness.summarize(prof, 1.0).range_device_s
+    assert ranges_s["pf.relocalize"][1] >= ranges_s["pf.update"][1] > 0, ranges_s
+    equal = torch.full((10_000,), -np.log(10_000.0), device="cuda")
+    scored = pf.update_raycast_icp(pf.ParticleState(poses, equal), grid, model, ranges, valid)
+    want_scored, want_kept = ref.relocalize(poses, grid, model, ranges, valid, 4096)
+    dw = (scored.log_w - want_scored.log_w).abs().double().cpu().numpy()
+    dt, dr = harness.pose_gaps(scored.poses.double().cpu().numpy(),
+                               want_scored.poses.double().cpu().numpy())
+    assert np.percentile(dw, 99) < 0.01 and np.percentile(dt, 99) < 0.005
+    assert np.percentile(dr, 99) < 0.002
+    by_rank = (got.log_w - want_kept.log_w).abs().double().cpu().numpy()
+    assert by_rank.mean() < 0.005 and np.percentile(by_rank, 99) < 0.1
+    assert got.poses.shape == (4096, 3) and bool(torch.isfinite(got.log_w).all())
 
 
 def _search_both(q, ref, ok):

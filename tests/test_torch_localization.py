@@ -330,10 +330,10 @@ def test_own_draws_come_from_the_generator_and_have_the_right_spread(room_map):
     once = tpf.maybe_resample(heavy, gen)
     r2 = tpf.kld_resample(once, gen)
     assert int(torch.isfinite(r2.log_w).sum()) == int(tpf.kld_sample_size(once)) < 4000
-    # Global relocalization: samples over the whole grid, the best kept.
+    # Global relocalization: samples over the free space, the best kept.
     obs, valid = torch.from_numpy(room_map["obs"]), torch.from_numpy(room_map["valid"])
-    g = tpf.global_relocalize(gen, room_map["tgrid"], room_map["tfield"], TMODEL, obs, valid,
-                              n_samples=6000, n_keep=64)
+    g = tpf.global_relocalize(gen, "field", room_map["tgrid"], room_map["tfield"], TMODEL, obs,
+                              valid, n_samples=6000, n_keep=64)
     assert g.poses.shape == (64, 3) and (g.log_w[:-1] >= g.log_w[1:]).all()
     # The room is a plain box, so its symmetric aliases score as well as
     # the truth: held is that every kept sample lies in the room's free

@@ -12,6 +12,7 @@ The room's sensor reaches 10 m, so the CPU's dense ladder stays short
 """
 
 import dataclasses
+import functools
 import os
 import sys
 
@@ -339,16 +340,24 @@ def test_facade_localization_takes_the_icp_model(room, monkeypatch):
     scans = [room_ranges(true[None], seed=20 + k)[0] for k in range(3)]
     s = tfacade.SlamV1(ROOM_MODEL, work_mode="localization", localization_grid=grid,
                        n_particles=128, device="cpu", seed=4, observation_model="icp")
+    # Fewer samples than the reference's 10,000 keep the CPU's ladder short.
+    monkeypatch.setattr(pf, "global_relocalize",
+                        functools.partial(pf.global_relocalize, n_samples=1000))
     calls = []
-    for name in ("update_raycast_icp", "update_field", "global_relocalize"):
+    for name in ("update_raycast_icp", "update_field", "global_relocalize",
+                 "global_relocalize_raycast_icp"):
         _spy(monkeypatch, pf, name, calls)
+    _spy(monkeypatch, tfacade, "likelihood_field", calls)
     s.start()
     out = []
     for r in scans:
         s.feed_odometry(0.0, 0.0, 0.0)
         out.append(s.feed_scan_main(r))
-    # Global relocalization on the first scan scores on the field; every
-    # scan then weighs with ray-cast + ICP.
-    assert calls == ["global_relocalize"] + ["update_raycast_icp"] * 3
+    # Global relocalization on the first scan scores by ray-cast + ICP, and
+    # that is the scan's update; each later scan weighs with ray-cast +
+    # ICP; no likelihood field is built.
+    assert calls == ["global_relocalize", "global_relocalize_raycast_icp",
+                     "update_raycast_icp"] + ["update_raycast_icp"] * 2
+    assert s._field is None
     # The bound of the field's own test of this mode (tests/test_torch_facade.py).
     assert np.linalg.norm(out[-1][:2] - true[:2]) < 1.0

@@ -4,7 +4,8 @@ registry records nothing and enters no ``record_function``; under
 window it records and each span is a range of the profiler's timeline.
 Held on ``odometry_keyframe`` (its phases and pass 2's padding counters),
 the particle filter's four phases and the names of their graph counters,
-the ray-cast + ICP update's spans and counters, and the correlative
+the ray-cast + ICP update's spans and counters, the global
+relocalization's span and counters, and the correlative
 search's ``h2`` range, on the CPU."""
 
 import math
@@ -41,6 +42,9 @@ PF_GRAPH_COUNTERS = ("pf.graph_captures", "pf.graph_replays")
 # ``update_raycast_icp``: the update, its march and its ICP chunk loop.
 PF_ICP_SPANS = ("pf.update", "pf.raycast", "pf.icp")
 PF_ICP_COUNTERS = ("pf.icp_pairs", "pf.icp_chunks", "pf.raycast_rays", "pf.raycast_chunks")
+# ``global_relocalize_at``: the relocalization's span and its counters;
+# ``free_cells`` counts the table's length.
+PF_RELOC_COUNTERS = ("pf.reloc_samples", "pf.reloc_kept")
 # ``match_icp_points``' search: one kernel launch a search on CUDA float32
 # tensors, none on the CPU.
 ICP_KERNEL_COUNTERS = ("icp.nearest_two_launches",)
@@ -280,6 +284,46 @@ def test_raycast_icp_spans_nest_and_counters_count(registry, log, chunk):
             (r, search) for r in events["h1_nearest_two"]]:
         assert outer.start <= inner.start and inner.end <= outer.end
     assert march.end <= search.start
+
+
+def test_relocalize_span_holds_the_update_and_counters_count(registry, log):
+    """Off, a relocalization and the free-cell table record nothing; under
+    ``enable()`` the table counts its length in ``pf.reloc_free_cells``;
+    under a window ``pf.relocalize`` is one range around the sampler, the
+    ray-cast + ICP update (``pf.update`` with ``pf.raycast`` and ``pf.icp``
+    inside) and the top ``n_keep``, and the counters add the samples and
+    the kept particles of the call; the result is the same either way."""
+    poses, _, scans = log
+    gt = torch.from_numpy(poses.astype(np.float32))
+    grid = integrate_scans(empty_grid(spec_for_trajectory(poses, 8.0, 0.1)), LMS211, scans, gt)
+    free = pf.free_cells(grid)
+    assert registry.counts() == {}
+    registry.enable()
+    pf.free_cells(grid)
+    assert registry.counts() == {"pf.reloc_free_cells": free.numel()}
+    registry.disable()
+    registry.reset()
+    u = torch.rand(40, 4, generator=torch.Generator().manual_seed(9))
+    args = (u, free, "icp", grid, None, LMS211, scans.ranges[3], ~scans.bad[3], 16)
+    off = pf.global_relocalize_at(*args)
+    assert registry.report() == {} and registry.counts() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = pf.global_relocalize_at(*args)
+    assert torch.equal(on.log_w, off.log_w) and torch.equal(on.poses, off.poses)
+    rep = registry.report()
+    assert {n: rep[n]["count"] for n in ("pf.relocalize", *PF_ICP_SPANS)} == dict.fromkeys(
+        ("pf.relocalize", *PF_ICP_SPANS), 1)
+    counts = registry.counts()
+    assert {n: counts[n] for n in PF_RELOC_COUNTERS} == {"pf.reloc_samples": 40,
+                                                         "pf.reloc_kept": 16}
+    assert counts["pf.icp_pairs"] == 40 * LMS211.n_beams ** 2 * 10
+    events = {}
+    for e in prof.events():
+        events.setdefault(e.name, []).append(e.time_range)
+    (outer,) = events["pf.relocalize"]
+    for name in PF_ICP_SPANS:
+        (inner,) = events[name]
+        assert outer.start <= inner.start and inner.end <= outer.end
 
 
 def test_h2_range_appears_under_a_window(registry, log):
